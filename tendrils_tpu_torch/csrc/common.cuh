@@ -1,0 +1,84 @@
+// Shared constants and device helpers of the port's kernels.
+//
+// Every kernel here is a plain one-thread-per-item CUDA C++ kernel for
+// Hopper (sm_90a). The library is compiled with --fmad=false: several
+// outputs (the packed words and tile keys of pack.cu) must match the plain
+// PyTorch versions bit for bit, and a contracted multiply-add would round
+// differently from the separate multiply and add those versions execute.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tt {
+
+// Fixed-point and padded-grid geometry (tendrils_tpu_torch/ops/tile_geom.py).
+constexpr int HALF = 32767;
+constexpr int TILE_H = 16;
+constexpr int TILE_W = 256;
+constexpr int PAD_LO_H = 16;
+constexpr int PAD_LO_W = 256;
+constexpr float INERT = -1.0e6f;
+constexpr float KMAX_WIDTH = 8.0f;
+constexpr float COLOR_MAX = 4.0f;
+constexpr int N_CHAN = 11;  // flow (vx.a, vy.a, wf.a, a, log(1-a)) + view (r.a, g.a, b.a, a.a, a, log(1-a))
+constexpr int N_FLOW = 5;
+// Footprint span of a box of width <= KMAX_WIDTH, in texels.
+constexpr int KSPAN = 9;
+constexpr int THREADS = 256;
+
+// jnp.clip(v, lo, hi) == minimum(maximum(v, lo), hi).
+__device__ __forceinline__ float clampf(float v, float lo, float hi) {
+  return fminf(fmaxf(v, lo), hi);
+}
+
+// q15 velocity field back to [-1, 1] (draw_pallas `unq` / reconstruct_rows):
+// q * f32(2 / HALF) - 1, the constant rounded once from double as JAX does.
+__device__ __forceinline__ float unq15(int q) {
+  return (float)q * (float)(2.0 / 32767.0) - 1.0f;
+}
+
+// CLAMP_TO_EDGE bilinear footprint at texel coords (x, y) of an h x w plane
+// ((0.5, 0.5) is the centre of texel [0, 0]); the contract of
+// ops/sample.bilinear_sample. The +1 corners are clamped into the plane:
+// after the edge clamp they can fall one past the last row or column, where
+// their weight is exactly 0 but a raw read would leave the plane.
+struct Bilerp {
+  int i00, i01, i10, i11;
+  float fx, fy;
+};
+
+__device__ __forceinline__ Bilerp bilerp_at(int h, int w, float x, float y) {
+  const float gx = clampf(x, 0.5f, (float)w - 0.5f) - 0.5f;
+  const float gy = clampf(y, 0.5f, (float)h - 0.5f) - 0.5f;
+  const float x0 = floorf(gx);
+  const float y0 = floorf(gy);
+  Bilerp b;
+  b.fx = gx - x0;
+  b.fy = gy - y0;
+  const int x0i = min(max((int)x0, 0), w - 1);
+  const int x1i = min(x0i + 1, w - 1);
+  const int y0i = min(max((int)y0, 0), h - 1);
+  const int y1i = min(y0i + 1, h - 1);
+  b.i00 = y0i * w + x0i;
+  b.i01 = y0i * w + x1i;
+  b.i10 = y1i * w + x0i;
+  b.i11 = y1i * w + x1i;
+  return b;
+}
+
+// The same lerps, in the same order, as bilinear_sample.
+__device__ __forceinline__ float bilerp(const float* plane, const Bilerp& b) {
+  const float v00 = plane[b.i00];
+  const float v01 = plane[b.i01];
+  const float v10 = plane[b.i10];
+  const float v11 = plane[b.i11];
+  const float top = v00 + (v01 - v00) * b.fx;
+  const float bot = v10 + (v11 - v10) * b.fx;
+  return top + (bot - top) * b.fy;
+}
+
+inline int blocks_for(long long n) {
+  return (int)((n + THREADS - 1) / THREADS);
+}
+
+}  // namespace tt

@@ -1,0 +1,5 @@
+"""Model zoo — named, ready-to-run sim configurations."""
+
+from .configs import MODELS, build, default_preview, one_m_flow
+
+__all__ = ["MODELS", "build", "default_preview", "one_m_flow"]
