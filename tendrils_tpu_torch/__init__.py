@@ -11,12 +11,15 @@ imports `torch` and never `jax` or `triton`.
 
 from .const import INERT, PI, TAU
 from .engine import EngineConfig, Tendrils, run_headless
+from .flow_line import FlowLine, FlowLines
+from .media import OpticalFlow, grid_to_image, image_to_grid
 from .state import SimState, default_state, make_state
 from .timer import Timer
 
 __all__ = [
-    "EngineConfig", "INERT", "PI", "SimState", "TAU", "Tendrils", "Timer",
-    "default_state", "make_state", "run_headless",
+    "EngineConfig", "FlowLine", "FlowLines", "INERT", "OpticalFlow", "PI",
+    "SimState", "TAU", "Tendrils", "Timer", "default_state", "grid_to_image",
+    "image_to_grid", "make_state", "run_headless",
 ]
 
 __version__ = "0.1.0"

@@ -77,6 +77,44 @@ __device__ __forceinline__ float bilerp(const float* plane, const Bilerp& b) {
   return top + (bot - top) * b.fy;
 }
 
+// Unpack a fixed-point p1 word (x in the low 15 bits, y above, at `inv_p`
+// padded px), clamp it to the content edge and return its bilinear
+// footprint in content coordinates (gather_pallas.py:107-112) — the gather
+// half of K4 and all of K8, shared so the two cannot diverge.
+__device__ __forceinline__ Bilerp bilerp_p1(int h, int w, int p1,
+                                            float inv_p) {
+  const float xcl = clampf((float)(p1 & HALF) * inv_p,
+                           (float)PAD_LO_W + 0.5f,
+                           (float)(PAD_LO_W + w) - 0.5f);
+  const float ycl = clampf((float)(p1 >> 15) * inv_p,
+                           (float)PAD_LO_H + 0.5f,
+                           (float)(PAD_LO_H + h) - 0.5f);
+  return bilerp_at(h, w, xcl - (float)PAD_LO_W, ycl - (float)PAD_LO_H);
+}
+
+// Resident-stream state reassembly of row i of n (draw_pallas
+// reconstruct_rows): position from the exact sorted positions, velocity
+// un-quantised from the q15 word, previous = (pos - vel for live rows, vel).
+// Shared by K4 and K6, as the JAX package shares reconstruct_rows, so the
+// live-bit / q15 semantics cannot diverge.
+__device__ __forceinline__ void reconstruct_row(int i, int n, float sl,
+                                                float x, float y, int vl,
+                                                float* __restrict__ part,
+                                                float* __restrict__ prev) {
+  const int vel_u = vl & ((1 << 30) - 1);
+  const float nvx = unq15(vel_u & HALF) * sl;
+  const float nvy = unq15(vel_u >> 15) * sl;
+  const bool alive = (x != INERT) || (y != INERT);
+  part[i] = x;
+  part[n + i] = y;
+  part[2 * n + i] = nvx;
+  part[3 * n + i] = nvy;
+  prev[i] = alive ? x - nvx : x;
+  prev[n + i] = alive ? y - nvy : y;
+  prev[2 * n + i] = nvx;
+  prev[3 * n + i] = nvy;
+}
+
 inline int blocks_for(long long n) {
   return (int)((n + THREADS - 1) / THREADS);
 }

@@ -1,8 +1,10 @@
 """Named sim configurations (`tendrils_tpu/models/configs.py`) for the
-port's slice: BASELINE config 2 (`one_m_flow`, the main path) and the
-config-1 family preview. `build(name)` returns a spawned, ready-to-step
-engine on `device`. The other configurations need frame variants still to
-be ported (ROADMAP.md queue 1, items 7 and 13).
+port's slices: BASELINE config 2 (`one_m_flow`, the headless main path),
+config 4 (`optical_flow_driven`, the camera- and pointer-driven
+interactive frame, `Tendrils.step_draw_io`) and the config-1 family
+preview. `build(name)` returns a spawned, ready-to-step engine on
+`device`. The other configurations need frame variants still to be ported
+(ROADMAP.md queue 1, items 7 and 13).
 """
 
 from ..engine import EngineConfig, Tendrils
@@ -33,9 +35,18 @@ def one_m_flow(view_res=(1080, 1920), device="cuda"):
                                  **_backends()), device=device)
 
 
+def optical_flow_driven(view_res=(720, 1280), device="cuda"):
+    """BASELINE config 4: camera-flow-driven 512² sim (feed frames via
+    `media.OpticalFlow` and pointer paths via `flow_line.FlowLines` to
+    `step_draw_io`)."""
+    return _spawned(EngineConfig(root_num=512, view_res=view_res,
+                                 **_backends()), device=device)
+
+
 MODELS = {
     "default-preview": default_preview,
     "1m-flow": one_m_flow,
+    "optical-flow-driven": optical_flow_driven,
 }
 
 

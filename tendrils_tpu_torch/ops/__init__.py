@@ -1,5 +1,6 @@
 """Tensor ops of the port: plain PyTorch, plus the hand-written CUDA kernels
-of the fused draw (`draw_cuda`) and the gathers (`gather_cuda`)."""
+of the fused draw (`draw_cuda`), the gathers (`gather_cuda`) and the point
+splat (`splat_cuda`)."""
 
 
 def not_ported(what, item):

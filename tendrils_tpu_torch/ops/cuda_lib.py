@@ -1,10 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources under `tendrils_tpu_torch/csrc/` are compiled by nvcc for Hopper
-(`sm_90a`) into ONE shared library with a plain C interface, loaded with
-ctypes. The build runs at first use, into `build/tendrils_tpu_torch/` beside
-the package, under a file name keyed by a hash of the sources and flags, so
-an edited `.cu` never loads a stale library. Nothing here runs at import:
+(`sm_90a`), one nvcc process per source, all started together, and linked
+into ONE shared library with a plain C interface, loaded with ctypes. The
+build runs at first use, into `build/tendrils_tpu_torch/` beside the
+package, under a file name keyed by a hash of the sources and flags, so an
+edited `.cu` never loads a stale library. Nothing here runs at import:
 importing the package needs neither nvcc nor a GPU.
 
 Each C entry launches on PyTorch's current stream and returns
@@ -29,8 +30,9 @@ _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "tendrils_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              # Bit-exact integer outputs (pack.cu): no contracted FMAs.
+              "-std=c++17", "-Xcompiler", "-fPIC",
+              # Bit-exact outputs (pack.cu's words, the K6 reassembly): no
+              # contracted FMAs.
               "--fmad=false")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -42,6 +44,9 @@ _SIGNATURES = {
     "tt_gather_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P,
                               _P, _P, _P],
     "tt_bilinear_gather": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "tt_reconstruct": [_P, _P, _P, _P, _I, _P, _P, _P],
+    "tt_gather_keyed_p1": [_P, _I, _I, _I, _P, _I, _F, _P, _P],
+    "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 launches = collections.Counter()
@@ -70,6 +75,35 @@ def _nvcc():
                        " the CUDA kernels are built from csrc/ at first use")
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raise with the output of the first
+    that failed, after all have ended."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    for cmd, out, rc in outs:
+        if rc:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+
+
+def _build(so, sources):
+    """Compile each source to an object (in parallel), link the library,
+    and move it into place under its final name."""
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"objs.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    objs = [work / f"{src.stem}.o" for src in sources]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+                   str(src)] for src, obj in zip(sources, objs)])
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def library():
     """The loaded kernel library, built first if its sources changed."""
     global _lib, build_seconds
@@ -82,17 +116,9 @@ def library():
         digest.update(path.read_bytes())
     so = BUILD_DIR / f"libtendrils_kernels-{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               *map(str, sources)]
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                               f"{res.stdout}{res.stderr}")
+        _build(so, sources)
         build_seconds = time.perf_counter() - t0
-        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -14,14 +14,18 @@ combined `tile << 20 | row id` sort key, in-kernel line widths up to
                                  deposits into the padded 11-channel
                                  accumulator;
   K3 `resolve` (csrc/resolve.cu) per pixel: order-independent blend of
-                                 both grids, fade, the decayed flow `eff`.
+                                 both grids, fade, the decayed flow `eff`;
+  K6 `reconstruct_resident` (csrc/gather.cu) per sorted row: the state
+                                 reassembly alone, for frames that gather
+                                 the force after editing the flow.
 
 Each kernel's wrapper takes the plain PyTorch version (`pack_plain`,
-`splat_plain`, `resolve_plain`) when its tensors lie on the CPU and
-launches the kernel when they lie on a CUDA device. The packed words, the
-keys and the sorted order are the reference's contracts and match it bit
-for bit; the accumulator is summed in f32 (the TPU's matmul operands are
-bf16) with float atomics, in run-dependent order.
+`splat_plain`, `resolve_plain`, `reconstruct_resident_plain`) when its
+tensors lie on the CPU and launches the kernel when they lie on a CUDA
+device. The packed words, the keys and the sorted order are the
+reference's contracts and match it bit for bit; the accumulator is summed
+in f32 (the TPU's matmul operands are bf16) with float atomics, in
+run-dependent order.
 """
 
 import torch
@@ -459,10 +463,41 @@ def resolve_fused(accum, flow, view, fade_rgba, auto_clear, time, read_time,
     return resolve(rscal, accum, flow, view, want_eff=want_eff)
 
 
+# --- K6 reconstruct ----------------------------------------------------------
+
+
+def reconstruct_resident(npx, npy, vl, speed_limit):
+    """K6: the resident frame's state reassembly from the sorted ride
+    streams, without the gather (for frames that edit the flow before
+    the force is gathered): `npx`, `npy` `f32[M]` exact positions, `vl`
+    `i32[M]` q15 velocity words, `speed_limit` the (clamped) speedLimit.
+    Returns `(particles, previous)` `f32[4, M]`. (The JAX function also
+    re-stacks riding targets; the port does not ride live targets yet.)"""
+    sl = torch.as_tensor(speed_limit, dtype=_F32,
+                         device=npx.device).reshape(1)
+    if cuda_lib.on_cpu(npx, npy, vl, sl):
+        return reconstruct_resident_plain(npx, npy, vl, sl)
+    m = npx.shape[0]
+    cuda_lib.check(npx, "npx", _F32, (m,))
+    cuda_lib.check(npy, "npy", _F32, (m,))
+    cuda_lib.check(vl, "vl", _I32, (m,))
+    particles = torch.empty((4, m), dtype=_F32, device=npx.device)
+    previous = torch.empty((4, m), dtype=_F32, device=npx.device)
+    cuda_lib.launch("tt_reconstruct", "reconstruct_resident", npx, npy, vl,
+                    sl, m, particles, previous)
+    return particles, previous
+
+
+def reconstruct_resident_plain(npx, npy, vl, speed_limit):
+    """Plain version of K6 (`reconstruct_rows`)."""
+    cuda_lib.plain_calls["reconstruct_resident"] += 1
+    return reconstruct_rows(speed_limit, npx, npy, vl)
+
+
 def reconstruct_rows(sl, npx, npy, vl):
-    """Resident-stream reassembly (plain): un-quantise the q15 velocity
-    word, prev = pos - vel for live rows. Returns `(particles, previous)`
-    `f32[4, M]`."""
+    """Resident-stream reassembly (plain; K4's and K6's): un-quantise the
+    q15 velocity word, prev = pos - vel for live rows. Returns
+    `(particles, previous)` `f32[4, M]`."""
     vel_u = vl & ((1 << 30) - 1)
     nvx = _unq15(vel_u & HALF) * sl
     nvy = _unq15(vel_u >> 15) * sl

@@ -11,6 +11,15 @@ import torch
 from . import coords, sample
 
 
+def flow_payload(vel, time, speed_limit):
+    """`vel: f32[2, N]` -> payload `f32[4, N]` of (vx, vy, stamp, weight).
+    `time` and `speed_limit` may be numbers or 0-d tensors."""
+    speed = torch.sqrt(vel[0] * vel[0] + vel[1] * vel[1])
+    weight = torch.clamp(speed / speed_limit, max=1.0)
+    stamp = torch.zeros_like(weight) + time
+    return torch.stack([vel[0], vel[1], stamp, weight])
+
+
 def flow_decayed(data, time, decay):
     """`data: f32[4, ...]` -> effective velocity `f32[2, ...]`."""
     age = torch.clamp(1.0 - (time - data[2]) * decay, min=0.0)

@@ -7,7 +7,10 @@ The port of `tendrils_tpu/ops/gather_pallas.py` for the slice:
       state reassembly (`draw_cuda.reconstruct_rows`);
   K5 `bilinear_gather`       (csrc/gather.cu) per point: CLAMP_TO_EDGE
       bilinear sampling at arbitrary pixel coords (`sample.bilinear_sample`
-      is its plain version).
+      is its plain version);
+  K8 `bilinear_gather_keyed_p1` (csrc/gather.cu) per sorted row: K4's
+      gather half alone, for frames that edit the flow between the draw
+      and the gather (K4 == K8 + K6 `draw_cuda.reconstruct_resident`).
 
 The TPU kernels sort points by tile, gather through MXU matmuls and
 un-sort, because Mosaic has no vector gather; a per-point load computes the
@@ -82,13 +85,42 @@ def gather_reconstruct_p1(grid, p1_packed, npx, npy, vl, speed_limit, *,
 
 def gather_reconstruct_plain(grid, p1_packed, npx, npy, vl, speed_limit, *,
                              inv_p):
-    """Plain version of K4: unpack + CLAMP_TO_EDGE p1 (gather_pallas.py:
-    107-112, 516-517), bilinear sample, reassemble."""
+    """Plain version of K4: the gather half (`_gather_p1`), then the
+    reassembly (`reconstruct_rows`)."""
     cuda_lib.plain_calls["gather_reconstruct"] += 1
+    return (_gather_p1(grid, p1_packed, inv_p),
+            *reconstruct_rows(speed_limit, npx, npy, vl))
+
+
+def _gather_p1(grid, p1_packed, inv_p):
+    """Unpack + CLAMP_TO_EDGE p1 (gather_pallas.py:107-112, 516-517) and
+    sample `grid` there."""
     _, h, w = grid.shape
     x = torch.clamp((p1_packed & HALF).to(_F32) * inv_p, PAD_LO_W + 0.5,
                     PAD_LO_W + w - 0.5) - PAD_LO_W
     y = torch.clamp((p1_packed >> 15).to(_F32) * inv_p, PAD_LO_H + 0.5,
                     PAD_LO_H + h - 0.5) - PAD_LO_H
-    force = sample.bilinear_sample(grid, x, y)
-    return (force, *reconstruct_rows(speed_limit, npx, npy, vl))
+    return sample.bilinear_sample(grid, x, y)
+
+
+def bilinear_gather_keyed_p1(grid, p1_packed, *, inv_p):
+    """K8: sample `grid: f32[C, H, W]` (content layout) at the packed p1
+    words `i32[M]` (`1/inv_p` px, padded coordinates), CLAMP_TO_EDGE.
+    Returns the exact `f32[C, M]` in input (sorted = new row) order. (The
+    JAX function also takes the draw's tile keys; the port needs none.)"""
+    if cuda_lib.on_cpu(grid, p1_packed):
+        return bilinear_gather_keyed_p1_plain(grid, p1_packed, inv_p=inv_p)
+    c, h, w = grid.shape
+    m = p1_packed.shape[0]
+    cuda_lib.check(grid, "grid", _F32, (c, h, w))
+    cuda_lib.check(p1_packed, "p1_packed", _I32, (m,))
+    out = torch.empty((c, m), dtype=_F32, device=grid.device)
+    cuda_lib.launch("tt_gather_keyed_p1", "gather_keyed_p1", grid, c, h, w,
+                    p1_packed, m, float(inv_p), out)
+    return out
+
+
+def bilinear_gather_keyed_p1_plain(grid, p1_packed, *, inv_p):
+    """Plain version of K8: the gather half of K4's."""
+    cuda_lib.plain_calls["gather_keyed_p1"] += 1
+    return _gather_p1(grid, p1_packed, inv_p)

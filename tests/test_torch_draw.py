@@ -12,7 +12,8 @@ import torch
 
 from tendrils_tpu.ops import draw_pallas as jdraw
 from tendrils_tpu_torch.const import INERT
-from tendrils_tpu_torch.ops import draw_cuda as tdraw
+from tendrils_tpu_torch.ops import cuda_lib, draw_cuda as tdraw
+from tendrils_tpu_torch.ops.tile_geom import HALF
 
 pytestmark = pytest.mark.kernel  # runs the JAX Pallas kernels (pytest.ini)
 
@@ -132,3 +133,47 @@ def test_resolve_matches_jax(grid_hw, root):
     for j, t in zip(jout, tout):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,
                                    atol=1e-6)
+
+
+def _resident_streams(m, seed=3):
+    """Sorted-stream rows of a resident frame: exact positions, a fifth
+    of them INERT, and q15 velocity words with the live bit."""
+    rng = np.random.default_rng(seed)
+    npx = rng.uniform(-1, 1, m).astype(np.float32)
+    npy = rng.uniform(-1, 1, m).astype(np.float32)
+    inert = rng.random(m) < 0.2
+    npx[inert] = INERT
+    npy[inert] = INERT
+    qx, qy = rng.integers(0, HALF + 1, (2, m)).astype(np.int32)
+    vl = ((~inert).astype(np.int32) << 30) + qy * (HALF + 1) + qx
+    return npx, npy, vl, inert
+
+
+@pytest.mark.parametrize("m", [3000, 4096])
+def test_reconstruct_resident_matches_jax(m):
+    """K6 (plain version on the CPU) against the JAX `reconstruct_resident`
+    and the body it shares with K4, `draw_pallas.reconstruct_rows`."""
+    npx, npy, vl, inert = _resident_streams(m)
+    sl = np.float32(0.01)
+    cuda_lib.reset_counts()
+    t = tdraw.reconstruct_resident(*(torch.as_tensor(a)
+                                     for a in (npx, npy, vl, sl)))
+    assert cuda_lib.plain_calls["reconstruct_resident"] == 1
+    t = [a.numpy() for a in t]
+    # The shared body run op by op (eager JAX, numpy output refs): the
+    # same f32 operations, bit for bit.
+    part, prev = np.zeros((4, m), np.float32), np.zeros((4, m), np.float32)
+    jdraw.reconstruct_rows(jnp.float32(sl), jnp.asarray(npx),
+                           jnp.asarray(npy), jnp.asarray(vl), part, prev)
+    np.testing.assert_array_equal(t[0], part)
+    np.testing.assert_array_equal(t[1], prev)
+    # The Pallas kernel in interpret mode is jitted, and XLA on the CPU
+    # contracts the q15 decode `q * (2/HALF) - 1` into an FMA: an ulp of 1,
+    # times speedLimit, and an ulp of the position in pos - vel (as for K4,
+    # tests/test_torch_gather.py).
+    jout = jdraw.reconstruct_resident(jnp.asarray(npx), jnp.asarray(npy),
+                                      jnp.asarray(vl), sl, interpret=True)
+    for a, b in zip(t, jout):
+        np.testing.assert_allclose(a, np.asarray(b)[:, :m], rtol=1e-6,
+                                   atol=2 * 2.0 ** -24 * sl)
+    np.testing.assert_array_equal(t[1][0][inert], INERT)

@@ -146,3 +146,31 @@ def test_unported_branches_raise():
                                device="cpu").setup()
     with pytest.raises(NotImplementedError, match="non-resident"):
         classic.frame()
+    with pytest.raises(NotImplementedError, match="non-resident"):
+        classic.step_draw_io()
+    # The interactive frame's unported stages, and K7.
+    io = tengine.Tendrils(cfg, device="cpu").setup()
+    with pytest.raises(NotImplementedError, match="colour maps.*item 7"):
+        io.step_draw_io(color_maps=[np.ones((4, 2, 2), np.float32)],
+                        color_alphas=[1.0])
+    with pytest.raises(NotImplementedError, match="blur, bokeh.*item 9"):
+        io.step_draw_io(blur=(3.0, 1.0))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        io.step_draw_io(bokeh=(2.0, 0.5))
+    with pytest.raises(NotImplementedError, match="K7.*item 7"):
+        tengine.force_from_aux(io.sim.flow, (io.sim.idx, io.sim.idx),
+                               io.params(), 0.0, cfg)
+    with pytest.raises(NotImplementedError, match="want_eff"):
+        tengine.draw_sim(io.sim, io.params(), 0.0, cfg, io._view_size,
+                         want_aux=True, resident=True, targets_live=False,
+                         stepped=True, fast_resolve=True, want_eff=True)
+    # The xla splat backend (e.g. from a converted JAX config).
+    seg = (np.zeros((2, 2), np.float32), np.ones((2, 2), np.float32),
+           np.full((2, 2), 0.01, np.float32))
+    xla = tengine.Tendrils(dataclasses.replace(cfg, splat_backend="xla"),
+                           device="cpu").setup()
+    with pytest.raises(NotImplementedError, match="xla splat.*item 4"):
+        xla.inject_flow_segments(*seg, 2.0)
+    io.timer.paused = True
+    with pytest.raises(NotImplementedError, match="paused io frame"):
+        io.step_draw_io()
