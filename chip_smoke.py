@@ -31,10 +31,28 @@ Phases (each prints a line; any failure exits non-zero before the result):
      `flow_line.FlowLines` (4 pointers on circles, their paths trimmed to
      the last 1/flowDecay ms as the demo app trims them): 2 warm
      frames and 3 timed runs of 20 frames; the launch counters, the state,
-     and a small run on the card against the same run on the CPU.
-The last three lines are the card, the per-kernel JSON and the result JSON.
+     and a small run on the card against the same run on the CPU;
+  7. path A, the classic carried-force frame at config 2:
+     `models.build("1m-flow")` with `resident_stream=False`, two facade
+     frames and `run_headless` for 60 steps (the exact p0 and rgba8
+     streams through K1/K2, K3, the q15 force gather K7 and its un-sort),
+     then 3 timed runs of 60 steps; launch counters, state, and a small
+     run on the card against the CPU;
+  8. paths B and C at config 4 with the demo's three colour maps
+     (`feeds.IoFeed(color_maps=True)`): the running io frame (K1/K2 with
+     rgba8 colours), 2 warm frames and 3 timed runs of 20; then, the
+     timer paused, 20 paused io frames (a plain draw with the XLA tail)
+     and 20 `Tendrils.frame()` calls (the paused draw, the force by K7),
+     each timed; launch counters, state, and small runs on the card
+     against the CPU.
+Phase 3 also holds the K1/K2 variants with the p0 and rgba8 streams, K7
+and K12 (with `F.grid_sample` as its library yardstick) against their
+plain versions. The last three lines are the card, the per-kernel JSON and
+the result JSON.
 """
 
+import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -67,11 +85,32 @@ KERNELS = {
                         "tendrils_tpu/ops/gather_pallas.py:425"),
     "splat_points": ("tendrils_tpu_torch/csrc/splat_points.cu",
                      "tendrils_tpu/ops/splat_pallas.py:125"),
+    # The K1/K2 variants with the exact p0 stream and/or rgba8 colours.
+    "pack_p0_rgba": ("tendrils_tpu_torch/csrc/pack.cu",
+                     "tendrils_tpu/ops/draw_pallas.py:758"),
+    "pack_rgba": ("tendrils_tpu_torch/csrc/pack.cu",
+                  "tendrils_tpu/ops/draw_pallas.py:758"),
+    "splat_p0_rgba": ("tendrils_tpu_torch/csrc/splat.cu",
+                      "tendrils_tpu/ops/draw_pallas.py:179"),
+    "splat_rgba": ("tendrils_tpu_torch/csrc/splat.cu",
+                   "tendrils_tpu/ops/draw_pallas.py:179"),
+    "gather_keyed_q15": ("tendrils_tpu_torch/csrc/gather.cu",
+                         "tendrils_tpu/ops/gather_pallas.py:364"),
+    "gather_keyed": ("tendrils_tpu_torch/csrc/gather.cu",
+                     "tendrils_tpu/ops/gather_pallas.py:309"),
 }
 CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
                 "bilinear_gather")
 CONFIG4_PATH = ("pack", "splat", "resolve", "bilinear_gather",
                 "reconstruct_resident", "gather_keyed_p1", "splat_points")
+# Launches a frame of each new path (the others: none).
+PATH_A = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "resolve": 1,
+          "gather_keyed_q15": 1}
+PATH_C_RUNNING = {"pack_rgba": 1, "splat_rgba": 1, "resolve": 1,
+                  "reconstruct_resident": 1, "gather_keyed_p1": 1,
+                  "splat_points": 1}
+PATH_C_PAUSED = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "splat_points": 1}
+PATH_B = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "gather_keyed_q15": 1}
 
 
 def fail(msg):
@@ -404,8 +443,180 @@ def check_config4_kernels():
     return out
 
 
+def classic_streams(n, grid_hw, sl, seed, exact_p0=True):
+    """A draw's inputs with per-particle colours (`mapped`, a textured
+    colour map's lookup times colorMapAlpha) packed (K1) and sorted: with
+    `exact_p0` the classic draw's (the p0 stream, row ids arange(N)),
+    else the resident frame's (key_recon, permuted ids)."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    dev = torch.device("cuda")
+    h, w = grid_hw
+    time_, fdecay = 1000.0, 0.005
+    rng = np.random.default_rng(seed)
+    pos, vel, live, idx, vs = resident_inputs(rng, n, grid_hw, sl)
+    if exact_p0:
+        idx = np.arange(n, dtype=np.int32)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    pos_t, vel_t, vs_t = t(pos), t(vel), t(vs)
+    scale = torch.tensor([w * 0.5, h * 0.5], device=dev)
+    p1 = torch.stack([(pos_t[0] * vs_t[0] * 0.5 + 0.5) * w,
+                      (pos_t[1] * vs_t[1] * 0.5 + 0.5) * h], dim=-1)
+    p0 = (p1 - vel_t.T * vs_t * scale).contiguous() if exact_p0 else None
+    mapped = t(rng.uniform(0.0, 1.0, (4, n)).astype(np.float32)
+               * np.float32(0.4))
+    pscale = draw_cuda.pos_scale_for(grid_hw)
+    scal = draw_cuda._draw_scal(
+        sl, time_, 5.0, 1.0, 1e-6, float(np.sin(time_ * fdecay)), fdecay,
+        t(np.float32([1, 1, 1, 0.5])), t(np.float32([1, 1, 1, 0.04])),
+        torch.zeros(4, device=dev),
+        torch.zeros(2, device=dev) if exact_p0 else vs_t, dev)
+    pack_args = (scal, p1, vel_t, t(live), t(idx))
+    pack_kw = dict(grid_hw=grid_hw, pscale=pscale, p0_pix=p0, pos=pos_t,
+                   mapped=mapped)
+    words = draw_cuda.pack(*pack_args, **pack_kw)
+    _, perm = torch.sort(words[0])
+    return dict(scal=scal, pack_args=pack_args, pack_kw=pack_kw, words=words,
+                pscale=pscale, sorted=[None if a is None else a[perm]
+                                       for a in words])
+
+
+def check_variant_pack_splat(name, n, grid_hw, s, in_bytes, out):
+    """A K1 variant bit-exact and its K2 variant within 1e-5 of each
+    channel's max, against their plain versions, timed (the bound counts
+    the variant's streams)."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    from tendrils_tpu_torch.ops.tile_geom import pad_dims
+    h, w = grid_hw
+    hp, wp = pad_dims(h, w)
+    got = s["words"]
+    want = draw_cuda.pack_plain(*s["pack_args"], **s["pack_kw"])
+    for field, a, b in zip(("keym", "p1", "vl", "p0", "rgba"), got, want):
+        if (a is None) != (b is None) or (a is not None
+                                          and not torch.equal(a, b)):
+            fail(f"pack_{name} {field}: words differ")
+    words = sum(a is not None for a in got)
+    b, by = bound(in_bytes * n + 4 * words * n + 128, 130 * n)
+    out["pack_" + name] = dict(
+        max_abs_err=0.0, bound_ms=b, bound_by=by, library_ms=None,
+        ms=median_ms(lambda: draw_cuda.pack(*s["pack_args"],
+                                            **s["pack_kw"]), 50),
+        plain_ms=median_ms(lambda: draw_cuda.pack_plain(
+            *s["pack_args"], **s["pack_kw"]), 10))
+    keym_s, p1_s, vl_s, p0_s, rgba_s = s["sorted"]
+    kw = dict(samples=2, grid_hw=grid_hw, pscale=s["pscale"], p0=p0_s,
+              rgba=rgba_s)
+    args = (s["scal"], p1_s, vl_s)
+    err = within_channel_max(f"splat_{name}", draw_cuda.splat(*args, **kw),
+                             draw_cuda.splat_plain(*args, **kw))
+    live_samples = 2 * ((vl_s >> 30) & 1).sum().item()
+    deposits = live_samples * ((5 + 1) ** 2 * 5 + (1 + 1) ** 2 * 6)
+    b, by = bound(4 * (words - 1) * n + 11 * hp * wp * 4 + 128,
+                  3 * deposits + 40 * live_samples)
+    out["splat_" + name] = dict(
+        max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None,
+        ms=median_ms(lambda: draw_cuda.splat(*args, **kw), 20),
+        plain_ms=median_ms(lambda: draw_cuda.splat_plain(*args, **kw), 3))
+    for k in ("pack_" + name, "splat_" + name):
+        r = out[k]
+        print(f"  {k}: max |d| {r['max_abs_err']:.3e}; {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']})")
+
+
+def check_slice3_kernels():
+    """At config-2 shapes (1,048,576 rows, 1080x1920): K1/K2 with the
+    exact p0 and rgba8 streams, K7 and K12 against their plain versions;
+    at config-4 shapes (262,144 rows, 720x1280): K1/K2 with key_recon and
+    rgba8 (the textured resident frame)."""
+    from tendrils_tpu_torch.ops import flow as flow_ops, gather_cuda
+    from tendrils_tpu_torch.ops.tile_geom import HALF, PAD_LO_H, PAD_LO_W
+    dev = torch.device("cuda")
+    n, (h, w) = 1 << 20, (1080, 1920)
+    sl, time_ = 0.01, 1000.0
+    out = {}
+    s = classic_streams(n, (h, w), sl, 3)
+    # K1 reads p0, p1, vel, pos (8 B each), mapped (16 B), live, idx (4 B
+    # each) a row; K2 the four sorted words.
+    check_variant_pack_splat("p0_rgba", n, (h, w), s, 56, out)
+
+    # K7 at the sorted p1 from the decayed flow: reads p1 (4 B a row) and
+    # the touched texels (2 channels), writes one word a row; ~30
+    # operations a row.
+    eff = flow_ops.flow_decayed(random_flow((h, w), time_), time_ + DT,
+                                0.005).contiguous()
+    p1_s = s["sorted"][1]
+    inv_p = 1.0 / s["pscale"]
+    inv_sl = 1.0 / torch.full((1,), sl, device=dev)
+    k7 = gather_cuda.bilinear_gather_keyed_q15(eff, p1_s, inv_sl,
+                                               inv_p=inv_p)
+    ref = gather_cuda.bilinear_gather_keyed_q15_plain(eff, p1_s, inv_sl,
+                                                      inv_p=inv_p)
+    d = torch.maximum(((k7 & HALF) - (ref & HALF)).abs(),
+                      ((k7 >> 15) - (ref >> 15)).abs())
+    if d.max().item() > 1:
+        fail(f"gather_keyed_q15: a q15 field differs by {d.max().item()}")
+    texels = touched_texels(*p1_coords(p1_s, inv_p, h, w), h, w)
+    b, by = bound(8 * n + 8 * texels, 30 * n)
+    out["gather_keyed_q15"] = dict(
+        max_abs_err=float(d.max().item()), bound_ms=b, bound_by=by,
+        library_ms=None,
+        ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed_q15(
+            eff, p1_s, inv_sl, inv_p=inv_p), 50),
+        plain_ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed_q15_plain(
+            eff, p1_s, inv_sl, inv_p=inv_p), 10))
+    print(f"  gather_keyed_q15: {(k7 != ref).sum().item()} of {n} words "
+          f"differ, each q15 field by <= {d.max().item()}; "
+          f"{out['gather_keyed_q15']['ms']:.4f} ms (plain "
+          f"{out['gather_keyed_q15']['plain_ms']:.4f} ms, bound {b:.4f} ms "
+          f"by {by})")
+
+    # K12 at the same rows' padded coords (clamped as the draw's aux
+    # contract has them): reads xs, ys (8 B a row) and the touched texels,
+    # writes 2 values a row. Library: `grid_sample` (bilinear, zero
+    # padding, unaligned corners) on the content coords, normalised first.
+    x, y = p1_coords(p1_s, inv_p, h, w)
+    xs, ys = x + PAD_LO_W, y + PAD_LO_H
+    k12 = gather_cuda.bilinear_gather_keyed(eff, xs, ys)
+    err = close("gather_keyed", [k12],
+                [gather_cuda.bilinear_gather_keyed_plain(eff, xs, ys)])
+    norm = torch.stack([(xs - PAD_LO_W) / w * 2.0 - 1.0,
+                        (ys - PAD_LO_H) / h * 2.0 - 1.0], dim=-1)[None, None]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            eff[None], norm, mode="bilinear", padding_mode="zeros",
+            align_corners=False)
+
+    lib_err = (library()[0, :, 0] - k12).abs().max().item()
+    if lib_err > 1e-3 * eff.abs().max().item():
+        fail(f"gather_keyed vs grid_sample: max |d| {lib_err:.3e}")
+    b, by = bound(16 * n + 8 * touched_texels(x, y, h, w), 20 * n)
+    out["gather_keyed"] = dict(
+        max_abs_err=err, bound_ms=b, bound_by=by,
+        ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed(eff, xs, ys),
+                     50),
+        plain_ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed_plain(
+            eff, xs, ys), 10),
+        library_ms=median_ms(library, 50))
+    r = out["gather_keyed"]
+    print(f"  gather_keyed: max |d| {err:.3e}; {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f} ms, bound {b:.4f} ms by {by}, library "
+          f"{r['library_ms']:.4f} ms; grid_sample against K12: max |d| "
+          f"{lib_err:.3e})")
+
+    # The textured resident frame's variants at config 4: K1 reads p1,
+    # vel, pos (8 B each), mapped (16 B), live, idx (4 B each) a row.
+    n4, hw4 = 512 * 512, (720, 1280)
+    check_variant_pack_splat("rgba", n4, hw4,
+                             classic_streams(n4, hw4, sl, 4, exact_p0=False),
+                             48, out)
+    return out
+
+
 def check_state(sim, label):
     for name in ("particles", "previous", "flow", "view", "force"):
+        if getattr(sim, name) is None:
+            continue
         if not torch.isfinite(getattr(sim, name)).all():
             fail(f"{label}: non-finite {name}")
     alive = ((sim.particles[0] > -9e5).sum().item())
@@ -420,10 +631,10 @@ def by_id(sim):
 
 
 def agree(cpu, gpu, label):
-    """The card's state against the CPU's: particles by identity atol
-    1e-4; grids by the reference's cross-path tolerance (1-px smoothed
-    rtol 5e-2 / atol 2e-2, totals rtol 1e-3; float atomics reorder the
-    sums)."""
+    """The card's state against the CPU's: particles and the carried force
+    by identity atol 1e-4; grids by the reference's cross-path tolerance
+    (1-px smoothed rtol 5e-2 / atol 2e-2, totals rtol 1e-3; float atomics
+    reorder the sums)."""
     def smooth(img):
         k = torch.ones(1, 1, 3, 3) / 9.0
         return torch.nn.functional.conv2d(img[:, None], k, padding=1)[:, 0]
@@ -431,6 +642,14 @@ def agree(cpu, gpu, label):
     err = (by_id(cpu.sim) - by_id(gpu.sim)).abs().max().item()
     if err > 1e-4:
         fail(f"{label} card vs CPU: particles differ by {err:.3e}")
+    if (cpu.sim.force is None) != (gpu.sim.force is None):
+        fail(f"{label} card vs CPU: a carried force on one side only")
+    if cpu.sim.force is not None:
+        order = [torch.argsort(e.sim.idx.cpu()) for e in (cpu, gpu)]
+        err_f = (cpu.sim.force[:, order[0]]
+                 - gpu.sim.force.cpu()[:, order[1]]).abs().max().item()
+        if err_f > 1e-4:
+            fail(f"{label} card vs CPU: forces differ by {err_f:.3e}")
     h, w = cpu.config.view_res
     for name in ("flow", "view"):
         a = getattr(cpu.sim, name).reshape(-1, h, w)
@@ -443,13 +662,14 @@ def agree(cpu, gpu, label):
     return err
 
 
-def spawned_pair(view_res):
+def spawned_pair(view_res, **cfg_kw):
     """A root-64 engine on the CPU and one on the card, from one spawn."""
     import tendrils_tpu_torch as tt
     from tendrils_tpu_torch import convert
     from tendrils_tpu_torch.models.configs import _backends
     from tendrils_tpu_torch.ops import spawn
-    cfg = tt.EngineConfig(root_num=64, view_res=view_res, **_backends())
+    cfg = tt.EngineConfig(root_num=64, view_res=view_res, **_backends(),
+                          **cfg_kw)
     cpu, gpu = (tt.Tendrils(cfg, device=dev).setup()
                 for dev in ("cpu", "cuda"))
     cpu.spawn_shader(lambda p, e: spawn.ball(p, e._frag_xy, 0.6, 0.01))
@@ -458,10 +678,10 @@ def spawned_pair(view_res):
     return cpu, gpu
 
 
-def agree_with_plain():
+def agree_with_plain(**cfg_kw):
     """Config 2's frame: a small run on the card against the same run on
     the CPU (plain versions), 3 frames."""
-    cpu, gpu = spawned_pair((1080, 1920))
+    cpu, gpu = spawned_pair((1080, 1920), **cfg_kw)
     for _ in range(3):
         cpu.frame()
         gpu.frame()
@@ -600,6 +820,161 @@ def run_config4():
     return launches
 
 
+def check_launches(label, frames, per_frame, launches, plain):
+    """Every kernel of `per_frame` launched `frames` x its count, no other
+    kernel of the draw's tail, and no plain version."""
+    for k in ("pack", "splat", "pack_p0_rgba", "splat_p0_rgba", "pack_rgba",
+              "splat_rgba", "resolve", "gather_keyed_q15",
+              "gather_reconstruct", "reconstruct_resident", "gather_keyed_p1",
+              "splat_points"):
+        if launches.get(k, 0) != frames * per_frame.get(k, 0):
+            fail(f"{label}: {k} launched {launches.get(k, 0)} times, want "
+                 f"{frames * per_frame.get(k, 0)} (launches {launches})")
+    if any(plain.values()):
+        fail(f"{label}: plain calls {plain}")
+
+
+def run_path_a():
+    """Phase 7: the classic carried-force frame at config 2 through the
+    entry points; returns the launch counts of its main-path run."""
+    import tendrils_tpu_torch as tt
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import cuda_lib
+    eng = models.build("1m-flow")
+    eng.config = dataclasses.replace(eng.config, resident_stream=False)
+    cuda_lib.reset_counts()
+    eng.frame()
+    eng.frame()
+    sim = tt.run_headless(eng.sim, eng.params(), eng.config, eng._view_size,
+                          eng.timer.time, DT, STEPS, targets_live=False)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    check_launches("classic 1m-flow", 2 + STEPS,
+                   dict(PATH_A, bilinear_gather=0), launches,
+                   dict(cuda_lib.plain_calls))
+    if launches.get("bilinear_gather") != 1:  # the first frame's step
+        fail(f"classic 1m-flow: launches {launches}")
+    if not torch.equal(sim.idx.cpu(), torch.arange(eng.config.n,
+                                                   dtype=torch.int32)):
+        fail("classic 1m-flow: the rows changed order")
+    alive, texels = check_state(sim, "classic 1m-flow")
+    times = []
+    t_sim = eng.timer.time + STEPS * DT
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = tt.run_headless(sim, eng.params(), eng.config, eng._view_size,
+                              t_sim, DT, STEPS, targets_live=False)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        t_sim += STEPS * DT
+    check_state(sim, "classic 1m-flow timed")
+    sec = statistics.median(times) / STEPS
+    err = agree_with_plain(resident_stream=False)
+    runs = ", ".join(f"{t / STEPS * 1e3:.3f}" for t in times)
+    print(f"[7] classic 1m-flow (resident_stream=False): 2 frames + {STEPS} "
+          f"headless steps, launches {launches}, no plain calls; {alive} "
+          f"alive, {texels} flow texels; {sec * 1e3:.3f} ms/frame, "
+          f"{eng.config.n / sec:.0f} particle-steps/s (median of 3 x "
+          f"{STEPS} steps: {runs} ms/frame); card vs CPU particles max |d| "
+          f"{err:.2e}")
+    return launches
+
+
+def timed_frames(fn, frames):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / frames
+
+
+def agree_paths_b_c():
+    """Paths B and C at root 64, 720x1280, on the card against the CPU:
+    3 running io frames with the colour maps, then, paused, 2 io frames
+    and 2 `frame()` calls, each compared."""
+    from tendrils_tpu_torch.feeds import IoFeed
+    cpu, gpu = spawned_pair((720, 1280))
+    feeds = [IoFeed(cpu, color_maps=True), IoFeed(gpu, color_maps=True)]
+    errs = []
+    for i in range(3):
+        for feed in feeds:
+            feed.frame(i)
+    errs.append(agree(cpu, gpu, "optical-flow-driven, colour maps"))
+    for eng in (cpu, gpu):
+        eng.timer.paused = True
+    for i in range(3, 5):
+        for feed in feeds:
+            feed.frame(i)
+    errs.append(agree(cpu, gpu, "paused io frame"))
+    for _ in range(2):
+        cpu.frame()
+        gpu.frame()
+    errs.append(agree(cpu, gpu, "paused frame()"))
+    return errs
+
+
+def run_paths_b_c():
+    """Phase 8: config 4 with the demo's colour maps, running (path C),
+    paused io frames (path C paused) and paused `frame()` calls (path B);
+    returns the launch counts of the three runs together."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.feeds import IoFeed
+    from tendrils_tpu_torch.ops import cuda_lib
+    eng = models.build("optical-flow-driven")
+    feed = IoFeed(eng, color_maps=True)
+    total = {}
+
+    def tally(label, frames, per_frame):
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.launches)
+        check_launches(label, frames, per_frame, launches,
+                       dict(cuda_lib.plain_calls))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return launches
+
+    cuda_lib.reset_counts()
+    feed.frame(0)
+    feed.frame(1)
+    frames = itertools.count(2)
+    times = [timed_frames(lambda: feed.frame(next(frames)), IO_FRAMES)
+             for _ in range(3)]
+    launches_c = tally("colour-mapped io frame", 2 + 3 * IO_FRAMES,
+                       dict(PATH_C_RUNNING, bilinear_gather=0))
+    if eng.config.color_map_res != (480, 640):
+        fail(f"colour map {eng.config.color_map_res}, want (480, 640)")
+    alive, texels = check_state(eng.sim, "colour-mapped io frame")
+
+    eng.timer.paused = True
+    cuda_lib.reset_counts()
+    sec_paused_io = timed_frames(lambda: feed.frame(next(frames)), IO_FRAMES)
+    tally("paused io frame", IO_FRAMES, PATH_C_PAUSED)
+    if eng.sim.force is not None:
+        fail("paused io frame: a carried force")
+    cuda_lib.reset_counts()
+    sec_paused = timed_frames(eng.frame, IO_FRAMES)
+    tally("paused frame()", IO_FRAMES, PATH_B)
+    check_state(eng.sim, "paused frame()")
+    if eng.sim.force is None:
+        fail("paused frame(): no carried force")
+    errs = agree_paths_b_c()
+    sec = statistics.median(times)
+    runs = ", ".join(f"{t * 1e3:.3f}" for t in times)
+    print(f"[8] optical-flow-driven with 3 colour maps (2 x f32[4, 1, 512] "
+          f"audio + the 480x640 camera grid): {2 + 3 * IO_FRAMES} running io "
+          f"frames, launches {launches_c}; {alive} alive, {texels} flow "
+          f"texels; {sec * 1e3:.3f} ms/frame, {eng.config.n / sec:.0f} "
+          f"particle-steps/s (median of 3 x {IO_FRAMES}: {runs} ms/frame); "
+          f"paused: {IO_FRAMES} io frames {sec_paused_io * 1e3:.3f} ms/frame, "
+          f"{IO_FRAMES} frame() calls (the paused draw + K7) "
+          f"{sec_paused * 1e3:.3f} ms/frame; no plain calls; card vs CPU "
+          f"particles max |d| running {errs[0]:.2e}, paused io "
+          f"{errs[1]:.2e}, paused frame() {errs[2]:.2e}")
+    return total
+
+
 def main():
     try:
         smi = subprocess.run(
@@ -628,6 +1003,8 @@ def main():
     checks = check_config2_kernels()
     print("[3] kernels vs plain versions at config-4 shapes:")
     checks.update(check_config4_kernels())
+    print("[3] the K1/K2 variants with p0 and rgba8 streams, K7 and K12:")
+    checks.update(check_slice3_kernels())
 
     eng, launches2 = run_config2()
     err_p, grids = replay(eng)
@@ -637,13 +1014,16 @@ def main():
           f"force max |d| {grids['force']:.3e} (<= 1e-5 x its flow "
           f"channel's max)")
     launches4 = run_config4()
+    launches_a = run_path_a()
+    launches_bc = run_paths_b_c()
     if "jax" in sys.modules:
         fail("the port imported jax")
 
+    runs = (launches2, launches4, launches_a, launches_bc)
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches2.get(k, 0) + launches4.get(k, 0),
+         "launches": sum(r.get(k, 0) for r in runs),
          **{key: checks[k][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}}

@@ -1,12 +1,17 @@
 """Where the time of a frame goes, on one GPU.
 
-    python3 frame_profile.py [--model M] [--frames 20]
+    python3 frame_profile.py [--model M] [--frames 20] [--classic]
+                             [--color-maps] [--paused]
 
 Drives `models.build(M)`: "optical-flow-driven" (config 4, the default)
 through `step_draw_io` with the feed of `chip_smoke.py` (`feeds.IoFeed`:
 a 480x640 u8 camera with a moving bar, 4 pointer paths trimmed to the
-last 1/flowDecay ms as the demo trims them), or "1m-flow" (config 2)
-through `frame()`. Prints three readings of the same frame:
+last 1/flowDecay ms as the demo trims them; with `--color-maps` also the
+demo's three colour maps), or "1m-flow" (config 2) through `frame()`.
+`--classic` sets `resident_stream=False` (the classic carried-force
+frame); `--paused` pauses the timer after the warm-up frames (config 4:
+paused io frames; config 2: `frame()` is the paused draw). Prints three
+readings of the same frame:
 
   1. wall ms/frame of the plain loop (the end-to-end number);
   2. a `torch.profiler` trace of `--frames` frames: device time by kernel
@@ -23,6 +28,7 @@ It imports nothing of JAX; it needs a CUDA device.
 
 import argparse
 import collections
+import dataclasses
 import statistics
 import time
 
@@ -32,8 +38,8 @@ import torch
 def _stage_timers(acc):
     """Wrap the io frame's stages so that each runs alone between two
     device synchronisations; `acc[name]` collects its wall seconds."""
-    from tendrils_tpu_torch import engine, flow_line, media
-    from tendrils_tpu_torch.ops import optical_flow as of_ops
+    from tendrils_tpu_torch import engine, feeds, flow_line, media
+    from tendrils_tpu_torch.ops import optical_flow as of_ops, post, sample
 
     def timed(owner, attr, name):
         fn = getattr(owner, attr)
@@ -53,14 +59,19 @@ def _stage_timers(acc):
         (media.OpticalFlow, "set_pixels", "camera upload (set_pixels)"),
         (flow_line.FlowLines, "segments", "pointer segments (host numpy)"),
         (engine, "step_sim", "logic step"),
-        (engine, "fused_draw", "pack K1 + sort + splat K2 + resolve K3"),
+        (engine, "fused_draw",
+         "pack K1 + sort + splat K2 + resolve (K3 or the XLA tail)"),
         (engine, "reconstruct_resident", "reconstruct K6"),
         (engine, "gather_reconstruct_p1", "gather + reconstruct K4"),
         (engine, "_inject_flow", "flow lines (payload + K9 + composite)"),
         (of_ops, "optical_flow", "optical flow (480x640)"),
         (engine, "_resize_payload", "payload resize to 720x1280"),
         (of_ops, "composite_flow", "optical-flow composite"),
-        (engine, "force_from_aux", "force gather K8 (+ decay)"))]
+        (engine, "force_from_aux",
+         "force gather K8 or K7 (+ decay, un-sort)"),
+        (feeds, "image_to_grid", "camera grid as a colour map (host)"),
+        (post, "blend", "colour-map blend"),
+        (sample, "sample_uv", "colour-map lookup per particle"))]
 
 
 def main():
@@ -68,14 +79,19 @@ def main():
     ap.add_argument("--model", default="optical-flow-driven",
                     choices=("optical-flow-driven", "1m-flow"))
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--classic", action="store_true")
+    ap.add_argument("--color-maps", action="store_true")
+    ap.add_argument("--paused", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device")
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.feeds import IoFeed
     eng = models.build(args.model)
-    step = IoFeed(eng).frame if args.model == "optical-flow-driven" \
-        else lambda i: eng.frame()
+    eng.config = dataclasses.replace(eng.config,
+                                     resident_stream=not args.classic)
+    step = IoFeed(eng, color_maps=args.color_maps).frame \
+        if args.model == "optical-flow-driven" else lambda i: eng.frame()
     i = 0
 
     def frames(k):
@@ -86,12 +102,15 @@ def main():
         torch.cuda.synchronize()
 
     frames(3)
+    eng.timer.paused = args.paused
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
         frames(args.frames)
         walls.append((time.perf_counter() - t0) / args.frames * 1e3)
-    print(f"{args.model} on {torch.cuda.get_device_name(0)}")
+    print(f"{args.model} (classic {args.classic}, colour maps "
+          f"{args.color_maps}, paused {args.paused}) on "
+          f"{torch.cuda.get_device_name(0)}")
     print(f"[1] wall: {statistics.median(walls):.3f} ms/frame (median of 3 "
           f"x {args.frames}: {', '.join(f'{w:.3f}' for w in walls)})")
 

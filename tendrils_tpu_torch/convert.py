@@ -28,7 +28,7 @@ def engine_config(jax_cfg) -> EngineConfig:
     return EngineConfig(**kw)
 
 
-def sim_from_numpy(arrays, device="cpu") -> SimState:
+def sim_from_numpy(arrays, device="cuda") -> SimState:
     """A SimState on `device` from a dict of numpy arrays named like the
     JAX `SimState` fields. `force` may be absent or None; the JAX `key` is
     ignored (it has no counterpart); a merge-reorder carry is refused."""
@@ -50,7 +50,7 @@ def sim_to_numpy(sim: SimState) -> dict:
     return out
 
 
-def params_from_numpy(params, device="cpu") -> dict:
+def params_from_numpy(params, device="cuda") -> dict:
     """A params dict (numpy or Python values) as f32 tensors on `device`."""
     return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
             for k, v in params.items()}

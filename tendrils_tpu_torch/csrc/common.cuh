@@ -92,6 +92,44 @@ __device__ __forceinline__ Bilerp bilerp_p1(int h, int w, int p1,
   return bilerp_at(h, w, xcl - (float)PAD_LO_W, ycl - (float)PAD_LO_H);
 }
 
+// Render colour model (src/render/index.vert:57-94) of a segment with
+// velocity / speedLimit (vnx, vny) at NDC position (posx, posy) and the
+// colour-map value (mr, mg, mb, ma): (r, g, b, a) into c[0..3], before any
+// clamp or quantisation. Op for op as draw_pallas's `_emit_render_rgba`
+// (K1's rgba8 word) and the splat's scalar colour (K2), which share it.
+__device__ __forceinline__ void color_model(const float* __restrict__ scal,
+                                            float vnx, float vny, float posx,
+                                            float posy, float mr, float mg,
+                                            float mb, float ma, float* c) {
+  const float speed_rate =
+      fminf((vnx * vnx + vny * vny) / fmaxf(scal[4], 1e-12f), 1.0f);
+  const float al0 = vnx;
+  const float al1 = vnx * -0.5f + vny * (float)-0.8660254037844385;
+  const float al2 = vnx * -0.5f + vny * (float)0.8660254037844387;
+  const float k1 = 1.0f - scal[6];
+  const float sin_decay = scal[5];
+  const float fa0 = (al0 + (al1 * k1 - al0) * sin_decay) * 0.5f + 0.5f;
+  const float fa1 = (al1 + (al2 * k1 - al1) * sin_decay) * 0.5f + 0.5f;
+  const float fa2 = (al2 + (al0 * k1 - al2) * sin_decay) * 0.5f + 0.5f;
+  const float b0 = scal[7], b1 = scal[8], b2 = scal[9], b3 = scal[10];
+  const float f0 = scal[11], f1 = scal[12], f2 = scal[13], f3 = scal[14];
+  c[0] = clampf(b0 * b3, 0.f, 1.f) + clampf(mr * ma, 0.f, 1.f) +
+         clampf(f0 * fa0 * f3, 0.f, 1.f);
+  c[1] = clampf(b1 * b3, 0.f, 1.f) + clampf(mg * ma, 0.f, 1.f) +
+         clampf(f1 * fa1 * f3, 0.f, 1.f);
+  c[2] = clampf(b2 * b3, 0.f, 1.f) + clampf(mb * ma, 0.f, 1.f) +
+         clampf(f2 * fa2 * f3, 0.f, 1.f);
+  const float ca =
+      clampf(b3, 0.f, 1.f) + clampf(ma, 0.f, 1.f) + clampf(f3, 0.f, 1.f);
+  // Alpha: speed rate x clamped radial bezier vignette.
+  const float d = sqrtf(posx * posx + posy * posy);
+  const float amt = fminf(1.0f - d, 1.0f);
+  const float ut = 1.0f - amt;
+  const float bz = (0.2f * ut + amt) * ut + amt;
+  const float vig = clampf(fmaxf(bz, 0.0f), 0.2f, 1.0f);
+  c[3] = ca * speed_rate * vig;
+}
+
 // Resident-stream state reassembly of row i of n (draw_pallas
 // reconstruct_rows): position from the exact sorted positions, velocity
 // un-quantised from the q15 word, previous = (pos - vel for live rows, vel).

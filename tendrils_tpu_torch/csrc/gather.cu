@@ -6,6 +6,10 @@
 // (_reconstruct_kernel).
 // K8 keyed p1 gather — replaces gather_pallas.py:bilinear_gather_keyed_p1
 // (_kernel with from_p1).
+// K7 keyed q15 gather — replaces gather_pallas.py:bilinear_gather_keyed_q15
+// (_kernel with from_p1 and pack).
+// K12 keyed gather — replaces gather_pallas.py:bilinear_gather_keyed
+// (_kernel on padded float coords).
 //
 // K4, one thread per sorted row: unpack the fixed-point p1 word, clamp it
 // to the content edge, bilinearly sample the 2-channel decayed flow `eff`
@@ -17,13 +21,27 @@
 // K8 + K6 bit for bit.
 // K5, one thread per point: CLAMP_TO_EDGE bilinear sampling of a C-channel
 // grid at arbitrary f32 texel coords (contract: ops/sample.bilinear_sample).
+// K7, one thread per sorted row: K8's gather of the 2-channel decayed flow,
+// then the force packed as two q15 fields over +-speedLimit, y << 15 | x
+// (gather_pallas.py:222-232), the one word the non-resident frame un-sorts
+// into row order. `inv_sl` is a device scalar, 1 / max(speedLimit, 1e-12)
+// in f32 as the engine computes it.
+// K12, one thread per point: the gather on padded-grid float coords (x +
+// PAD_LO_W, y + PAD_LO_H), with the TPU kernel's arithmetic: weights 1 -
+// frac and 1 - that, summed per row then across rows; a corner outside the
+// content contributes 0, as the TPU's zero padding and its clamped region
+// DMA both give (gather_pallas.py:134-148). Inside [0.5, w - 0.5] x [0.5,
+// h - 0.5] of the content, where every caller clamps its points, that is
+// CLAMP_TO_EDGE sampling.
 //
 // Bound: bytes. K6 reads npx, npy, vl (12 B/row) and writes particles and
 // previous (32 B/row): 44 B x 262,144 rows = 11.5 MB, ~3.4 us at 3.35 TB/s
-// for config 4; it does a few flops per row, far below the f32 rate. The
-// gathers also read the four corner texels of each row; rows arrive sorted
-// by tile (K4, K8), so neighbouring threads read neighbouring texels and
-// most corners hit L1/L2; K5's points arrive in particle order. The TPU
+// for config 4; it does a few flops per row, far below the f32 rate. K7
+// reads p1 (4 B a row) and writes one word (4 B a row); K12 reads two
+// coords (8 B) and writes C values a point. The gathers also read the four
+// corner texels of each row; rows arrive sorted by tile (K4, K7, K8), so
+// neighbouring threads read neighbouring texels and most corners hit
+// L1/L2; K5's and K12's points arrive in the caller's order. The TPU
 // kernels sort points by tile, DMA each tile's region and gather with MXU
 // matmuls because Mosaic has no vector gather; a plain load per corner
 // computes the same function, so the port needs no sort, no un-sort and no
@@ -87,6 +105,61 @@ __global__ void bilinear_gather_kernel(const float* __restrict__ grid, int c,
   }
 }
 
+// jnp.round(clip(v * inv_sl, -1, 1) * 0.5 + 0.5) * HALF) of the q15 pack.
+__device__ __forceinline__ int q15_force(float v, float inv_sl) {
+  const float t = clampf(v * inv_sl, -1.0f, 1.0f) * 0.5f + 0.5f;
+  return (int)rintf(t * (float)HALF);
+}
+
+__global__ void gather_keyed_q15_kernel(const float* __restrict__ eff, int h,
+                                        int w, const int* __restrict__ p1w,
+                                        const float* __restrict__ inv_sl_ptr,
+                                        int n, float inv_p,
+                                        int* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Bilerp b = bilerp_p1(h, w, p1w[i], inv_p);
+  const float inv_sl = inv_sl_ptr[0];
+  const float fx = bilerp(eff, b);
+  const float fy = bilerp(eff + (long long)h * w, b);
+  out[i] = q15_force(fy, inv_sl) * (HALF + 1) + q15_force(fx, inv_sl);
+}
+
+// Texel (r, c) of a plane, or 0 outside the content.
+__device__ __forceinline__ float texel_or_zero(const float* plane, int h,
+                                               int w, int r, int c) {
+  return (r >= 0 && r < h && c >= 0 && c < w) ? plane[(long long)r * w + c]
+                                              : 0.0f;
+}
+
+__global__ void gather_keyed_kernel(const float* __restrict__ grid, int c,
+                                    int h, int w,
+                                    const float* __restrict__ xs,
+                                    const float* __restrict__ ys, int m,
+                                    float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const float gx = xs[i] - 0.5f;
+  const float gy = ys[i] - 0.5f;
+  const float c0f = floorf(gx);
+  const float r0f = floorf(gy);
+  const float wx0 = 1.0f - (gx - c0f);
+  const float wy0 = 1.0f - (gy - r0f);
+  const float wx1 = 1.0f - wx0;
+  const float wy1 = 1.0f - wy0;
+  const int c0 = (int)c0f - PAD_LO_W;
+  const int r0 = (int)r0f - PAD_LO_H;
+  const long long plane = (long long)h * w;
+  for (int k = 0; k < c; ++k) {
+    const float* g = grid + k * plane;
+    const float top = texel_or_zero(g, h, w, r0, c0) * wx0 +
+                      texel_or_zero(g, h, w, r0, c0 + 1) * wx1;
+    const float bot = texel_or_zero(g, h, w, r0 + 1, c0) * wx0 +
+                      texel_or_zero(g, h, w, r0 + 1, c0 + 1) * wx1;
+    out[(long long)k * m + i] = top * wy0 + bot * wy1;
+  }
+}
+
 }  // namespace
 
 extern "C" int tt_gather_reconstruct(const float* eff, int h, int w,
@@ -133,6 +206,27 @@ extern "C" int tt_bilinear_gather(const float* grid, int c, int h, int w,
     bilinear_gather_kernel<<<blocks_for(m), THREADS, 0,
                              (cudaStream_t)stream>>>(grid, c, h, w, x, y, m,
                                                      out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_gather_keyed_q15(const float* eff, int h, int w,
+                                   const int* p1, const float* inv_sl, int n,
+                                   float inv_p, int* out, void* stream) {
+  if (n > 0) {
+    gather_keyed_q15_kernel<<<blocks_for(n), THREADS, 0,
+                              (cudaStream_t)stream>>>(eff, h, w, p1, inv_sl,
+                                                      n, inv_p, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tt_gather_keyed(const float* grid, int c, int h, int w,
+                               const float* xs, const float* ys, int m,
+                               float* out, void* stream) {
+  if (m > 0) {
+    gather_keyed_kernel<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
+        grid, c, h, w, xs, ys, m, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 // K2 splat — replaces tendrils_tpu/ops/draw_pallas.py:_kernel (launched
-// from _bin_and_splat), in the resident frame's variant (derive_p0,
-// scalar_color, flow channels on).
+// from _bin_and_splat), with the flow channels on, in every variant the
+// engine runs: the p0 word stream and the rgba8 colour stream are each
+// optional (null pointers), as the TPU kernel's derive_p0 and scalar_color.
 //
 // One thread per (sorted segment, sample). Each thread re-derives its
-// segment from the packed words exactly as the TPU kernel does: p0 as
-// p1 - vel * viewScale, the render colour model of a 1x1 colour map, the
+// segment from the packed words exactly as the TPU kernel does: p0 from
+// its word or as p1 - vel * viewScale (derive_p0), the colours from the
+// rgba8 word or as the render colour model of a 1x1 colour map, the
 // deposit mass from the major extent, the zero-weight rule for samples the
 // margin clamp moved, and the sample centre quantised to 1/pscale px. It
 // then adds separable box footprints (width flowWidth for the 5 flow
@@ -63,11 +65,30 @@ __device__ __forceinline__ void deposit(float* __restrict__ acc, int hp,
   }
 }
 
+// Render colour model of a 1x1 colour map (draw_pallas `_kernel`
+// scalar_color; common.cuh:color_model) from the un-quantised velocity, the
+// vignette position derived from p1: (r, g, b, a) into c[0..3].
+__device__ __forceinline__ void scalar_colors(const float* __restrict__ scal,
+                                              float vx, float vy, float p1x,
+                                              float p1y, int h, int w,
+                                              float* c) {
+  const float inv_sl = 1.0f / fmaxf(scal[0], 1e-12f);
+  const float posx = ((p1x - (float)PAD_LO_W) * (float)(2.0 / w) - 1.0f) /
+                     fmaxf(scal[30], 1e-12f);
+  const float posy = ((p1y - (float)PAD_LO_H) * (float)(2.0 / h) - 1.0f) /
+                     fmaxf(scal[31], 1e-12f);
+  color_model(scal, vx * inv_sl, vy * inv_sl, posx, posy, scal[16],
+              scal[17], scal[18], scal[19], c);
+  for (int k = 0; k < 4; ++k) c[k] = clampf(c[k], 0.0f, COLOR_MAX);
+}
+
 __global__ void splat_kernel(const float* __restrict__ scal,
                              const int* __restrict__ p1w,
-                             const int* __restrict__ vlw, int n, int samples,
-                             int h, int w, int hp, int wp, float pscale,
-                             float* __restrict__ acc) {
+                             const int* __restrict__ vlw,
+                             const int* __restrict__ p0w,
+                             const int* __restrict__ rgbaw, int n,
+                             int samples, int h, int w, int hp, int wp,
+                             float pscale, float* __restrict__ acc) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)n * samples) return;
   const int i = (int)(t / samples);
@@ -86,11 +107,18 @@ __global__ void splat_kernel(const float* __restrict__ scal,
   const int vel_u = vl & ((1 << 30) - 1);
   const float vx = unq15(vel_u & HALF) * speed_limit;
   const float vy = unq15(vel_u >> 15) * speed_limit;
-  // derive_p0: Euler inverse in pixel space.
-  const float p0x = clampf(p1x - vx * (scal[30] * 0.5f * (float)w), 1.0f,
-                           (float)(PAD_LO_W + w) + 1.0f);
-  const float p0y = clampf(p1y - vy * (scal[31] * 0.5f * (float)h), 1.0f,
-                           (float)(PAD_LO_H + h) + 1.0f);
+  float p0x, p0y;
+  if (p0w == nullptr) {
+    // derive_p0: Euler inverse in pixel space.
+    p0x = clampf(p1x - vx * (scal[30] * 0.5f * (float)w), 1.0f,
+                 (float)(PAD_LO_W + w) + 1.0f);
+    p0y = clampf(p1y - vy * (scal[31] * 0.5f * (float)h), 1.0f,
+                 (float)(PAD_LO_H + h) + 1.0f);
+  } else {
+    const int p0 = p0w[i];
+    p0x = (float)(p0 & HALF) * inv_p;
+    p0y = (float)(p0 >> 15) * inv_p;
+  }
   const float dx = p1x - p0x;
   const float dy = p1y - p0y;
   // GL's DDA lights one fragment per major-axis pixel: mass ~ major extent.
@@ -107,50 +135,22 @@ __global__ void splat_kernel(const float* __restrict__ scal,
   const float gx = (float)(int)rintf(xp * pscale) * inv_p - 0.5f;
   const float gy = (float)(int)rintf(yp * pscale) * inv_p - 0.5f;
 
-  // Render colour model of a 1x1 colour map (src/render/index.vert:57-94).
-  const float inv_sl = 1.0f / fmaxf(speed_limit, 1e-12f);
-  const float vnx = vx * inv_sl;
-  const float vny = vy * inv_sl;
-  const float mr = scal[16], mg = scal[17], mb = scal[18], ma = scal[19];
-  const float speed_alpha = scal[4];
-  const float sin_decay = scal[5];
-  const float k1 = 1.0f - scal[6];
-  const float speed_rate =
-      fminf((vnx * vnx + vny * vny) / fmaxf(speed_alpha, 1e-12f), 1.0f);
-  const float al0 = vnx;
-  const float al1 = vnx * -0.5f + vny * (float)-0.8660254037844385;
-  const float al2 = vnx * -0.5f + vny * (float)0.8660254037844387;
-  const float fa0 = (al0 + (al1 * k1 - al0) * sin_decay) * 0.5f + 0.5f;
-  const float fa1 = (al1 + (al2 * k1 - al1) * sin_decay) * 0.5f + 0.5f;
-  const float fa2 = (al2 + (al0 * k1 - al2) * sin_decay) * 0.5f + 0.5f;
-  const float b0 = scal[7], b1 = scal[8], b2 = scal[9], b3 = scal[10];
-  const float f0 = scal[11], f1 = scal[12], f2 = scal[13], f3 = scal[14];
-  float cr = clampf(b0 * b3, 0.f, 1.f) + clampf(mr * ma, 0.f, 1.f) +
-             clampf(f0 * fa0 * f3, 0.f, 1.f);
-  float cg = clampf(b1 * b3, 0.f, 1.f) + clampf(mg * ma, 0.f, 1.f) +
-             clampf(f1 * fa1 * f3, 0.f, 1.f);
-  float cb = clampf(b2 * b3, 0.f, 1.f) + clampf(mb * ma, 0.f, 1.f) +
-             clampf(f2 * fa2 * f3, 0.f, 1.f);
-  float ca = clampf(b3, 0.f, 1.f) + clampf(ma, 0.f, 1.f) + clampf(f3, 0.f, 1.f);
-  // Alpha: speed rate x clamped radial bezier vignette.
-  const float posx = ((p1x - (float)PAD_LO_W) * (float)(2.0 / w) - 1.0f) /
-                     fmaxf(scal[30], 1e-12f);
-  const float posy = ((p1y - (float)PAD_LO_H) * (float)(2.0 / h) - 1.0f) /
-                     fmaxf(scal[31], 1e-12f);
-  const float d2 = sqrtf(posx * posx + posy * posy);
-  const float amt = fminf(1.0f - d2, 1.0f);
-  const float ut = 1.0f - amt;
-  const float bz = (0.2f * ut + amt) * ut + amt;
-  const float vig = clampf(fmaxf(bz, 0.0f), 0.2f, 1.0f);
-  ca = ca * speed_rate * vig;
-  cr = clampf(cr, 0.0f, COLOR_MAX);
-  cg = clampf(cg, 0.0f, COLOR_MAX);
-  cb = clampf(cb, 0.0f, COLOR_MAX);
-  ca = clampf(ca, 0.0f, COLOR_MAX);
+  float c[4];
+  if (rgbaw != nullptr) {
+    // The rgba8 word K1 packed (draw_pallas.py:323-329).
+    const int rgba = rgbaw[i];
+    const float c8 = (float)(4.0 / 255.0);
+    c[0] = (float)(rgba & 255) * c8;
+    c[1] = (float)((rgba >> 8) & 255) * c8;
+    c[2] = (float)((rgba >> 16) & 255) * c8;
+    c[3] = (float)((rgba >> 24) & 127) * (float)(4.0 / 127.0);
+  } else {
+    scalar_colors(scal, vx, vy, p1x, p1y, h, w, c);
+  }
 
   const float wf = fminf(sqrtf(vx * vx + vy * vy) / speed_limit, 1.0f);
   const float af = fminf(wf * a, (float)(1.0 - 1e-4));
-  const float av = clampf(ca * a, 0.0f, (float)(1.0 - 1e-4));
+  const float av = clampf(c[3] * a, 0.0f, (float)(1.0 - 1e-4));
   const long long plane = (long long)hp * wp;
   if (af > 0.0f) {
     const float fch[N_FLOW] = {vx * af, vy * af, wf * af, af, log1pf(-af)};
@@ -158,8 +158,8 @@ __global__ void splat_kernel(const float* __restrict__ scal,
                     1.0f / width_f);
   }
   if (av > 0.0f) {
-    const float vch[N_CHAN - N_FLOW] = {cr * av, cg * av, cb * av,
-                                        ca * av, av,      log1pf(-av)};
+    const float vch[N_CHAN - N_FLOW] = {c[0] * av, c[1] * av, c[2] * av,
+                                        c[3] * av, av,        log1pf(-av)};
     deposit<N_CHAN - N_FLOW>(acc + N_FLOW * plane, hp, wp, vch, gx, gy,
                              width_v * 0.5f, 1.0f / width_v);
   }
@@ -168,12 +168,13 @@ __global__ void splat_kernel(const float* __restrict__ scal,
 }  // namespace
 
 extern "C" int tt_splat(const float* scal, const int* p1, const int* vl,
-                        int n, int samples, int h, int w, int hp, int wp,
-                        float pscale, float* accum, void* stream) {
+                        const int* p0, const int* rgba, int n, int samples,
+                        int h, int w, int hp, int wp, float pscale,
+                        float* accum, void* stream) {
   const long long items = (long long)n * samples;
   if (items > 0) {
     splat_kernel<<<blocks_for(items), THREADS, 0, (cudaStream_t)stream>>>(
-        scal, p1, vl, n, samples, h, w, hp, wp, pscale, accum);
+        scal, p1, vl, p0, rgba, n, samples, h, w, hp, wp, pscale, accum);
   }
   return (int)cudaGetLastError();
 }

@@ -1,21 +1,29 @@
 """The Tendrils engine — orchestration of step / draw / spawn.
 
-The port of `tendrils_tpu/engine.py` for its resident-stream frames with
-the carried flow force and the fused draw (`EngineConfig` defaults with
-`flow_levels=1`, `flow_res=None`, a 1x1 colour map, `flowWeight != 0` and
-line widths <= `KMAX_WIDTH`). Per frame:
+The port of `tendrils_tpu/engine.py` for the fused draw (`EngineConfig`
+defaults with `flow_levels=1`, `flow_res=None`, `flowWeight != 0`). Per
+frame:
 
     step_sim   logic step (plain tensor code); the flow force comes carried
                from the previous frame, or is gathered in the step (K5);
-    draw_sim   pack (K1), sort, splat (K2), resolve (K3) and the next
-               force's gather with the state reassembly (K4); the sorted
-               order becomes the next frame's row order (`sim.idx`).
+    draw_sim   pack (K1), sort, splat (K2), and the resolve: K3, or the
+               XLA tail (line widths above KMAX_WIDTH, the paused draw).
 
-The interactive frame (`Tendrils.step_draw_io`, `_frame_io`) edits the flow
-after the draw — pointer flow lines (`_inject_flow`, the point splat K9)
-and the camera's optical flow (`ops.optical_flow`) — so its draw only
-reassembles the state (K6), and the next force is gathered afterwards from
-the final flow (`force_from_aux`, K8).
+The resident frame (`resident_stream=True`, the default) lets the state
+ride the draw's sort: the next force's gather and the state reassembly
+run in one pass (K4), and the sorted order becomes the next frame's row
+order (`sim.idx`). The classic frame (`resident_stream=False`) and the
+paused draw (`Tendrils.draw`) keep the row order: the draw sends the exact
+p0 and rgba8 colour streams, and the next force is gathered at the sorted
+p1 (K7, packed q15) and un-sorted by row id (`force_from_aux`). A textured
+colour map sends the rgba8 stream on the resident frame too.
+
+The interactive frame (`Tendrils.step_draw_io`, `_frame_io`) blends its
+colour maps before the step and edits the flow after the draw — pointer
+flow lines (`_inject_flow`, the point splat K9) and the camera's optical
+flow (`ops.optical_flow`) — so its draw only reassembles the state (K6),
+and the next force is gathered afterwards from the final flow
+(`force_from_aux`, K8 or K7).
 
 The ordering invariant of the reference holds: the step reads the flow
 BEFORE this frame's deposit (`src/index.js:297-298`). Every other frame
@@ -35,12 +43,14 @@ import torch.nn.functional as F
 from . import state as state_mod
 from .const import INERT
 from .ops import coords, flow as flow_ops, logic, not_ported
-from .ops import optical_flow as of_ops, spawn as spawn_ops
-from .ops import splat as splat_ops
+from .ops import optical_flow as of_ops, post as post_ops, render, sample
+from .ops import spawn as spawn_ops, splat as splat_ops
 from .ops.draw_cuda import (KMAX_WIDTH, fused_draw, pos_scale_for,
                             reconstruct_resident)
 from .ops.gather_cuda import (bilinear_gather, bilinear_gather_keyed_p1,
+                              bilinear_gather_keyed_q15,
                               gather_reconstruct_p1)
+from .ops.tile_geom import HALF
 from .timer import Timer
 
 
@@ -90,18 +100,22 @@ def resident_enabled(cfg: EngineConfig) -> bool:
     return carry_enabled(cfg) and cfg.resident_stream
 
 
+def host_widths(src) -> tuple[float, float]:
+    """`(flowWidth, lineWidth)` as host numbers, from the engine's state
+    dict or a params dict (reading a device tensor synchronises once)."""
+    return float(src.get("flowWidth", 1.0)), float(src.get("lineWidth", 1.0))
+
+
 def fast_resolve_ok(cfg: EngineConfig, src=None) -> bool:
     """Whether the fused resolve (K3) applies: the fused kernel draw and
     host-known line widths within the in-kernel budget. `src`: the
-    engine's state dict or a params dict (reading a device tensor here
-    synchronises once). The CUDA resolve takes any grid shape, so the TPU
-    alignment test has no counterpart."""
+    engine's state dict or a params dict (see `host_widths`). The CUDA
+    resolve takes any grid shape, so the TPU alignment test has no
+    counterpart."""
     if not (cfg.fused_draw and cfg.splat_backend == "kernel"
             and cfg.flow_shape == cfg.view_res) or src is None:
         return False
-    fw = float(src.get("flowWidth", 1.0))
-    lw = float(src.get("lineWidth", 1.0))
-    return max(fw, lw, 1.0) <= KMAX_WIDTH
+    return max(*host_widths(src), 1.0) <= KMAX_WIDTH
 
 
 def flow_force_unused(src) -> bool:
@@ -119,17 +133,33 @@ def _decayed(flow, time, params):
 
 
 def force_from_aux(flow, aux, params, read_time, cfg: EngineConfig,
-                   unsort=True):
-    """The next step's flow force: `flow` decayed to `read_time`, gathered
-    at the draw's sorted p1 stream (`aux = (idx_s, p1_s)`) by K8. In the
-    resident stream (`unsort=False`) the sorted order IS the new row order,
-    so the exact f32 force is returned as is."""
-    if unsort:
-        raise not_ported("the non-resident carried force (the q15 keyed "
-                         "gather K7 and its un-sort)", 7)
-    return bilinear_gather_keyed_p1(
-        _decayed(flow, read_time, params), aux[1],
-        inv_p=1.0 / pos_scale_for(cfg.flow_shape))
+                   unsort=True, eff=None):
+    """The next step's flow force, gathered at the draw's sorted p1 stream
+    (`aux = (idx_s, p1_s)`) from `eff`, or from `flow` decayed to
+    `read_time` when `eff` is None (`eff` is K3's decayed flow, valid only
+    when nothing edited the flow since the draw).
+
+    With `unsort=False` (the resident stream) the sorted order IS the new
+    row order: the exact f32 force is returned as K8 gathers it. With
+    `unsort=True` (classic frames, the paused draw) K7 packs the force as
+    two q15 fields over +-speedLimit, the words are scattered back to row
+    order by the unique row ids (`out[idx_s] = packed`; the JAX package
+    un-sorts with `lax.sort`, outside any kernel) and decoded."""
+    inv_p = 1.0 / pos_scale_for(cfg.flow_shape)
+    if eff is None:
+        eff = _decayed(flow, read_time, params)
+    if not unsort:
+        return bilinear_gather_keyed_p1(eff, aux[1], inv_p=inv_p)
+    sl = torch.clamp(params["speedLimit"], min=1e-12)
+    packed = bilinear_gather_keyed_q15(eff.contiguous(), aux[1], 1.0 / sl,
+                                       inv_p=inv_p)
+    pk = torch.empty_like(packed)
+    pk[aux[0].to(torch.int64)] = packed
+
+    def unq(q):
+        return (q.to(torch.float32) * (2.0 / HALF) - 1.0) * sl
+
+    return torch.stack([unq(pk & HALF), unq(pk >> 15)])
 
 
 def initial_force(sim: state_mod.SimState, params, cfg: EngineConfig,
@@ -184,96 +214,169 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
              view_size, axis_name=None, want_aux=False, resident=False,
              targets_live=True, stepped=False, fast_resolve=False,
              read_time=None, want_eff=False, want_force=False,
-             flow_off=False):
-    """Flow + view render passes — ref `src/index.js:278-340` — in the
-    resident-stream variant: the exact positions ride the draw's segment
-    sort and the returned sim is permuted into the sorted row order
-    (`sim.idx` tracks identity). `previous` is reconstructed as pos - vel
-    for live rows, its velocity half as the current velocity (the
-    reference package's documented deviation).
+             flow_off=False, host_widths=None):
+    """Flow + view render passes — ref `src/index.js:278-340` — on the
+    fused draw.
 
-    With `want_force` the next step's force is gathered in the same pass
-    that rebuilds the state (K4), from the flow K3 decays to `read_time`,
-    and set on `sim.force`; without it the state is rebuilt alone (K6) and
-    the caller gathers the force once it has edited the flow
-    (`force_from_aux`). Returns `(sim', aux)`, aux = (sorted ids, sorted p1
-    words).
+    `resident` (with `want_aux`; a step just preceded the draw): the exact
+    positions ride the draw's segment sort and the returned sim is
+    permuted into the sorted row order (`sim.idx` tracks identity).
+    `previous` is reconstructed as pos - vel for live rows, its velocity
+    half as the current velocity (the reference package's documented
+    deviation). With `want_force` the next step's force is gathered in the
+    same pass that rebuilds the state (K4), from the flow decayed to
+    `read_time`, and set on `sim.force`; without it the state is rebuilt
+    alone (K6) and the caller gathers the force once it has edited the
+    flow (`force_from_aux`).
 
-    The arguments are those of the JAX function; the port requires
-    `resident`, `want_aux`, `stepped` and `fast_resolve`, with
-    `targets_live=False`. K3 emits the decayed flow exactly when K4 reads
-    it, so `want_eff` is accepted only with `want_force`: the port does
-    not return `eff`."""
+    Otherwise the draw keeps the row order and sends the exact p0 stream;
+    with `want_aux` it carries the row ids (gather mode 1) for the force
+    gather. A 1x1 colour map on the resident frame is four scalars for
+    the splat; every other draw samples the map per particle
+    (`colormap_uv` from `sim.idx`) and packs the colours to rgba8.
+
+    `fast_resolve` (line widths <= KMAX_WIDTH): K3 resolves, with
+    `autoClearView` and the fade; with `want_eff` (and `want_aux`) it also
+    emits the flow decayed to `read_time`. Without it the view is cleared
+    and faded here and the XLA tail resolves; `host_widths` (port only:
+    the host's `(flowWidth, lineWidth)`) decides its blur without reading
+    the device.
+
+    Returns `(sim', aux[, eff])` with `want_aux` (aux = (sorted row ids,
+    sorted p1 words); `eff` with `want_eff` when no force was gathered),
+    else `sim'`, as the JAX function does."""
     if axis_name is not None:
         raise not_ported("the sharded draw", 12)
     if not (cfg.fused_draw and cfg.splat_backend == "kernel"
             and cfg.flow_shape == cfg.view_res):
         raise not_ported("the generic (xla) draw", 4)
-    if not (resident and want_aux and stepped):
-        raise not_ported("non-resident draws (the classic carried force, "
-                         "the paused draw)", 7)
-    if cfg.merge_reorder:
-        raise not_ported("the merge reorder", 10)
-    if targets_live:
-        raise not_ported("live targets riding the sort", 7)
     if flow_off:
         raise not_ported("flow_off (flowWeight == 0)", 7)
-    if not fast_resolve:
-        raise not_ported("the XLA resolve tail (line widths above "
-                         "KMAX_WIDTH)", 7)
-    if cfg.color_map_res != (1, 1):
-        raise not_ported("textured colour maps", 7)
-    if want_eff and not want_force:
-        raise not_ported("returning the decayed flow (want_eff without "
-                         "want_force)", 7)
+    resident = resident and want_aux
+    if want_force and not resident:
+        raise ValueError("want_force requires the resident draw "
+                         "(resident=True with want_aux)")
+    if resident and cfg.merge_reorder:
+        raise not_ported("the merge reorder", 10)
+    if resident and targets_live:
+        raise not_ported("live targets riding the sort", 7)
     pos = sim.particles[:2]
     vel = sim.particles[2:]
     prev_pos = sim.previous[:2]
     alive = ((pos[0] != INERT) | (pos[1] != INERT)) & \
             ((prev_pos[0] != INERT) | (prev_pos[1] != INERT))
     h, w = cfg.view_res
-    # 1x1 colour map: the whole render colour model runs in the splat.
-    mapped_scalar = sim.color_map[:, 0, 0] * params["colorMapAlpha"]
+    mapped = mapped_scalar = None
+    if resident and cfg.color_map_res == (1, 1):
+        # The whole render colour model runs in the splat.
+        mapped_scalar = sim.color_map[:, 0, 0] * params["colorMapAlpha"]
+    else:
+        colormap_uv = state_mod.particle_coords_from_idx(
+            sim.idx, cfg.root_num)[2]
+        mapped = sample.sample_uv(sim.color_map, colormap_uv.T) \
+            * params["colorMapAlpha"]
     p1 = coords.clip_to_pixel(
         torch.stack([pos[0] * view_size[0], pos[1] * view_size[1]], dim=-1),
         (w, h))
-    # p0 is derived in the splat from p1 and the velocity (derive_p0).
+    p0 = None
+    if not resident:
+        p0 = coords.clip_to_pixel(
+            torch.stack([prev_pos[0] * view_size[0],
+                         prev_pos[1] * view_size[1]], dim=-1), (w, h))
+    view0 = sim.view[0]
+    if not fast_resolve:
+        # K3 clears and fades in-kernel; the XLA tail's caller does it.
+        view0 = render.fade_fill(view0 * (1.0 - params["autoClearView"]),
+                                 params["fadeColor"] * params["autoFade"])
+    idx = ride = None
+    if resident:
+        idx, ride = sim.idx, [sim.particles[0], sim.particles[1]]
+    elif want_aux:
+        # The aux id is the ROW number: the force un-sorts to row order.
+        idx = torch.arange(pos.shape[1], dtype=torch.int32,
+                           device=pos.device)
+    want_eff = want_eff and fast_resolve and want_aux
+    # K3 emits the decayed flow whenever it is read: by the caller
+    # (`want_eff`) or by K4 here.
+    k3_eff = fast_resolve and (want_eff or want_force)
     new_flow, view0, aux, ride_s, *eff = fused_draw(
-        sim.flow, sim.view[0], None, p1, vel, pos, None,
+        sim.flow, view0, p0, p1, vel, pos, mapped,
         alive.to(torch.float32), params, time, grid_hw=(h, w),
-        samples=cfg.view_samples, idx=sim.idx,
-        ride=[sim.particles[0], sim.particles[1]], idx_bound=cfg.n,
-        derive_p0=True, view_size=view_size, mapped_scalar=mapped_scalar,
-        resolve="kernel", read_time=read_time, want_eff=want_force)
+        samples=cfg.view_samples, idx=idx, ride=ride,
+        idx_bound=cfg.n if resident else None, derive_p0=resident,
+        view_size=view_size if resident else None,
+        mapped_scalar=mapped_scalar,
+        resolve="kernel" if fast_resolve else "xla", read_time=read_time,
+        want_eff=k3_eff, host_widths=host_widths)
+    eff = eff[0] if eff else None
+    view = torch.cat([view0[None], sim.view[1:]])
+    if not resident:
+        new_sim = dataclasses.replace(sim, flow=new_flow, view=view)
+        if not want_aux:
+            return new_sim
+        return (new_sim, aux, eff) if want_eff else (new_sim, aux)
     sl = torch.clamp(params["speedLimit"], min=1e-12)
     force = None
     if want_force:
+        if read_time is None:
+            raise ValueError("want_force needs read_time")
+        if eff is None:
+            eff = _decayed(new_flow, read_time, params)
         force, particles, previous = gather_reconstruct_p1(
-            eff[0], aux[1], ride_s[0], ride_s[1], ride_s[2], sl,
+            eff.contiguous(), aux[1], ride_s[0], ride_s[1], ride_s[2], sl,
             inv_p=1.0 / pos_scale_for((h, w)))
     else:
         particles, previous = reconstruct_resident(ride_s[0], ride_s[1],
                                                    ride_s[2], sl)
     new_sim = dataclasses.replace(
         sim, particles=particles, previous=previous, idx=aux[0],
-        flow=new_flow, view=torch.cat([view0[None], sim.view[1:]]),
-        force=force)
+        flow=new_flow, view=view, force=force)
+    if want_eff and not want_force:
+        return new_sim, aux, eff
     return new_sim, aux
 
 
+def _draw(sim, params, time, dt, cfg, view_size, flow_off=False,
+          host_widths=None):
+    """The paused draw (the JAX `_draw_jit`): a draw with no step before
+    it, so the exact p0 stream and rgba8 colours, the XLA resolve tail,
+    and the next force gathered from the flow decayed to `time + dt` (K7,
+    un-sorted to row order). With `flowWeight == 0` or without the carried
+    force it is a plain draw and drops any force."""
+    if flow_off or not carry_enabled(cfg):
+        if sim.force is not None:
+            sim = dataclasses.replace(sim, force=None)
+        return draw_sim(sim, params, time, cfg, view_size,
+                        host_widths=host_widths)
+    sim, aux = draw_sim(sim, params, time, cfg, view_size, want_aux=True,
+                        host_widths=host_widths)
+    return dataclasses.replace(sim, force=force_from_aux(
+        sim.flow, aux, params, time + dt, cfg))
+
+
 def _frame(sim, params, time, dt, cfg, view_size, targets_live=True,
-           fast_resolve=False, flow_off=False):
-    """One resident frame: step + draw, the next force carried on `sim`."""
-    if not resident_enabled(cfg):
-        raise not_ported("non-resident frames (the classic carried force "
-                         "and the generic draw)", 7)
-    sim = step_sim(sim, params, time, dt, cfg, view_size, flow_off=flow_off)
-    sim, _ = draw_sim(sim, params, time, cfg, view_size, want_aux=True,
-                      resident=True, targets_live=targets_live,
-                      stepped=True, fast_resolve=fast_resolve,
-                      read_time=time + dt, want_eff=fast_resolve,
-                      want_force=True, flow_off=flow_off)
-    return sim
+           fast_resolve=False, flow_off=False, host_widths=None):
+    """One frame: step + draw, the next force carried on `sim`: gathered
+    in the resident draw (K4), or by `force_from_aux` after a classic draw
+    (K7 from K3's decayed flow). Without the carried force the step
+    gathers its own (K5) and the draw gathers none."""
+    if flow_off:
+        raise not_ported("flow_off (flowWeight == 0)", 7)
+    sim = step_sim(sim, params, time, dt, cfg, view_size)
+    if not carry_enabled(cfg):
+        return draw_sim(sim, params, time, cfg, view_size, stepped=True,
+                        fast_resolve=fast_resolve, host_widths=host_widths)
+    resident = resident_enabled(cfg)
+    out = draw_sim(sim, params, time, cfg, view_size, want_aux=True,
+                   resident=resident, targets_live=targets_live,
+                   stepped=True, fast_resolve=fast_resolve,
+                   read_time=time + dt, want_eff=fast_resolve,
+                   want_force=resident, host_widths=host_widths)
+    if resident:
+        return out[0]
+    sim, aux, *eff = out
+    return dataclasses.replace(sim, force=force_from_aux(
+        sim.flow, aux, params, time + dt, cfg, eff=eff[0] if eff else None))
 
 
 def _inject_flow(flow, p0_pix, p1_pix, vel, width, params, time, cfg,
@@ -290,52 +393,74 @@ def _inject_flow(flow, p0_pix, p1_pix, vel, width, params, time, cfg,
         rows=max(1, cfg.flow_rows))
 
 
-def _resize_payload(payload, hw):
-    """`f32[4, h, w]` -> `f32[4, *hw]` as `jax.image.resize(..., "bilinear")`
+def _resize_payload(grid, hw):
+    """`f32[C, h, w]` -> `f32[C, *hw]` as `jax.image.resize(..., "bilinear")`
     does: plain bilinear (align_corners=False, edges clamped) where no axis
     shrinks, the antialiased triangle filter where one does (torch's
     `antialias=True`, which widens the filter only along the shrinking
     axis). Both agree with JAX to ~2e-7 on values in [-1, 1]
-    (tests/test_torch_optical_flow.py)."""
-    if tuple(payload.shape[1:]) == tuple(hw):
-        return payload
-    shrinks = payload.shape[1] > hw[0] or payload.shape[2] > hw[1]
-    return F.interpolate(payload[None], size=tuple(hw), mode="bilinear",
+    (tests/test_torch_optical_flow.py, tests/test_torch_frame_io.py)."""
+    if tuple(grid.shape[1:]) == tuple(hw):
+        return grid
+    shrinks = grid.shape[1] > hw[0] or grid.shape[2] > hw[1]
+    return F.interpolate(grid[None], size=tuple(hw), mode="bilinear",
                          align_corners=False, antialias=shrinks)[0]
 
 
 def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
               blur, bokeh=None, stepping=True, targets_live=True,
-              fast_resolve=False, flow_off=False):
-    """The interactive frame (the JAX `_frame_io_jit`): step + resident
-    draw, then [pointer flow lines] and [optical-flow composite], then the
-    next force gathered from the FINAL flow at `time + dt` (the reference's
-    logic pass sees the flow lines and optical flow written this frame,
-    `demo.main.js:1107-1160`). Without either input the draw gathers the
-    force itself (K4), exactly as the JAX function fuses it.
+              fast_resolve=False, flow_off=False, host_widths=None):
+    """The interactive frame (the JAX `_frame_io_jit`): [colour-map blend],
+    step + draw, then [pointer flow lines] and [optical-flow composite],
+    then the next force gathered from the FINAL flow at `time + dt` (the
+    reference's logic pass sees the flow lines and optical flow written
+    this frame, `demo.main.js:1107-1160`): K8 on the resident stream, K7
+    and the un-sort on the classic one. Without either input the resident
+    draw gathers the force itself (K4), and a classic draw hands K3's
+    decayed flow to K7, exactly as the JAX function fuses them.
+    `stepping=False` (the paused timer) skips only the step: a plain draw
+    (gather mode 0, the XLA tail) and every input still land, and no force
+    is carried.
 
+    `cm`: colour-map tensors `f32[4, h, w]`, resized to the largest and
+    blended with `cm_alphas` (`post.blend`, ref `demo.main.js:1070-1079`);
     `seg`: `(p0_pix, p1_pix, vel, width)` tensors; `of`: `(current, last,
     offset, lambda, speed)`, frames as device tensors, the uniforms host
     numbers. Returns `(sim', None)` (the screen of the post stack is not
     ported)."""
-    del cm_alphas
-    if cm is not None:
-        raise not_ported("textured colour maps (the io frame's colour-map "
-                         "blend)", 7)
     if blur is not None or bokeh is not None:
         raise not_ported("the post stack (blur, bokeh)", 9)
-    if not stepping:
-        raise not_ported("the paused io frame", 7)
-    if not resident_enabled(cfg):
-        raise not_ported("non-resident frames (the classic carried force "
-                         "and the generic draw)", 7)
+    if flow_off:
+        raise not_ported("flow_off (flowWeight == 0)", 7)
+    carry = carry_enabled(cfg) and stepping
+    if not carry and sim.force is not None:
+        sim = dataclasses.replace(sim, force=None)
+    if cm is not None:
+        target = max((g.shape for g in cm), key=lambda sh: sh[1] * sh[2])
+        sim = dataclasses.replace(sim, color_map=post_ops.blend(
+            [_resize_payload(g, target[1:]) for g in cm], cm_alphas))
+    resident = resident_enabled(cfg) and stepping
     edits = seg is not None or of is not None
-    sim = step_sim(sim, params, time, dt, cfg, view_size, flow_off=flow_off)
-    sim, aux = draw_sim(sim, params, time, cfg, view_size, want_aux=True,
-                        resident=True, targets_live=targets_live,
-                        stepped=True, fast_resolve=fast_resolve,
-                        read_time=time + dt, want_force=not edits,
-                        flow_off=flow_off)
+    aux = eff = None
+    if not stepping:
+        sim = draw_sim(sim, params, time, cfg, view_size,
+                       host_widths=host_widths)
+    else:
+        sim = step_sim(sim, params, time, dt, cfg, view_size)
+        if carry:
+            sim, aux, *eff = draw_sim(
+                sim, params, time, cfg, view_size, want_aux=True,
+                resident=resident, targets_live=targets_live, stepped=True,
+                fast_resolve=fast_resolve, read_time=time + dt,
+                want_eff=fast_resolve and not edits,
+                want_force=resident and not edits, host_widths=host_widths)
+            eff = eff[0] if eff else None
+            if resident and not edits:
+                aux = None  # the draw set sim.force (K4)
+        else:
+            sim = draw_sim(sim, params, time, cfg, view_size, stepped=True,
+                           fast_resolve=fast_resolve,
+                           host_widths=host_widths)
     if seg is not None:
         p0, p1, vel, width = seg
         sim = dataclasses.replace(
@@ -349,9 +474,10 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
         payload = _resize_payload(payload, cfg.flow_shape)
         sim = dataclasses.replace(
             sim, flow=of_ops.composite_flow(sim.flow, payload))
-    if edits:
+    if aux is not None:
         sim = dataclasses.replace(sim, force=force_from_aux(
-            sim.flow, aux, params, time + dt, cfg, unsort=False))
+            sim.flow, aux, params, time + dt, cfg, unsort=not resident,
+            eff=eff))
     return sim, None
 
 
@@ -364,22 +490,27 @@ def _f32(v, device):
 
 def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
                  targets_live=True, fast_resolve=None, flow_off=False):
-    """Fixed-step headless run of `steps` frames at times t0 + dt*(i + 1).
-    The carried force is seeded once by a gather at the start (K5).
-    Returns the final state."""
-    if flow_off or not carry_enabled(cfg):
-        raise not_ported("headless runs without the carried force", 7)
+    """Fixed-step headless run of `steps` frames at times t0 + dt*(i + 1)
+    (`_frame`). With the carried force it is seeded once by a gather at the
+    start (K5); without it each step gathers its own. Returns the final
+    state."""
+    if flow_off:
+        raise not_ported("flow_off (flowWeight == 0)", 7)
     device = sim.particles.device
     t0, dt = _f32(t0, device), _f32(dt, device)
-    if sim.force is None:
+    carry = carry_enabled(cfg)
+    if carry and sim.force is None:
         sim = dataclasses.replace(
             sim, force=initial_force(sim, params, cfg, view_size, t0 + dt))
+    elif not carry and sim.force is not None:
+        sim = dataclasses.replace(sim, force=None)
     if fast_resolve is None:
         fast_resolve = fast_resolve_ok(cfg, params)
+    widths = host_widths(params)
     for i in range(steps):
         sim = _frame(sim, params, t0 + dt * float(i + 1), dt, cfg,
                      view_size, targets_live=targets_live,
-                     fast_resolve=fast_resolve)
+                     fast_resolve=fast_resolve, host_widths=widths)
     return sim
 
 
@@ -515,8 +646,15 @@ class Tendrils:
         return self
 
     def draw(self):
-        """Ref `src/index.js:278-340`: a draw with no step before it."""
-        raise not_ported("the paused draw()", 7)
+        """Ref `src/index.js:278-340`: a draw with no step before it
+        (`_draw`), the next force gathered after it."""
+        self.sim = _draw(self.sim, self.params(),
+                         _f32(self.timer.time, self.device),
+                         _f32(self.timer.dt, self.device), self.config,
+                         self._view_size,
+                         flow_off=flow_force_unused(self.state),
+                         host_widths=host_widths(self.state))
+        return self
 
     def step_draw(self):
         """step + draw with no timer tick — for hosts that tick timers
@@ -530,7 +668,8 @@ class Tendrils:
                           self._view_size, targets_live=self._targets_live,
                           fast_resolve=fast_resolve_ok(self.config,
                                                        self.state),
-                          flow_off=flow_force_unused(self.state))
+                          flow_off=flow_force_unused(self.state),
+                          host_widths=host_widths(self.state))
         return self
 
     def frame(self):
@@ -597,18 +736,34 @@ class Tendrils:
     def step_draw_io(self, *, color_maps=None, color_alphas=None,
                      segments=None, of_frames=None, of_uniforms=None,
                      blur=None, bokeh=None):
-        """The interactive frame (no timer tick, like `step_draw`): step +
-        draw, pointer flow-line injection, optical-flow composite, then the
-        next force from the final flow — the reference's per-frame stack
-        (`demo.main.js:1024-1161`).
+        """The interactive frame (no timer tick, like `step_draw`):
+        colour-map blend, step + draw, pointer flow-line injection,
+        optical-flow composite, then the next force from the final flow —
+        the reference's per-frame stack (`demo.main.js:1024-1161`).
 
-        `segments`: `(p0_pix, p1_pix, vel, width_px)` pointer ribbons
-        (`flow_line.FlowLines.segments`); `of_frames`: `(current, last)`
-        frames (`media.OpticalFlow.device_buffers`, u8 or f32) with
-        `of_uniforms` (offset / lambda / speed, host numbers). Colour maps,
-        the blur and bokeh post stack and the paused frame are not ported
-        yet (they raise). Returns None (no post stage)."""
+        `color_maps`: `f32[4, h, w]` grids (numpy or tensors) blended into
+        the colour map with `color_alphas` weights (ref
+        `demo.main.js:1070-1079`); the config's `color_map_res` follows the
+        largest. `segments`: `(p0_pix, p1_pix, vel, width_px)` pointer
+        ribbons (`flow_line.FlowLines.segments`); `of_frames`: `(current,
+        last)` frames (`media.OpticalFlow.device_buffers`, u8 or f32) with
+        `of_uniforms` (offset / lambda / speed, host numbers). While the
+        timer is paused only the step is skipped. The blur and bokeh post
+        stack is not ported yet (it raises). Returns None (no post
+        stage)."""
         self._check_force_params()
+        cm = None
+        if color_maps is not None:
+            cm = tuple(torch.as_tensor(g, dtype=torch.float32,
+                                       device=self.device)
+                       for g in color_maps)
+            target = max((g.shape for g in cm), key=lambda sh: sh[1] * sh[2])
+            if tuple(target) != tuple(self.sim.color_map.shape):
+                self.config = dataclasses.replace(
+                    self.config, color_map_res=tuple(target[1:]))
+            color_alphas = torch.as_tensor(color_alphas,
+                                           dtype=torch.float32,
+                                           device=self.device)
         seg = None
         if segments is not None and len(segments[0]):
             seg = (*self._segment_tensors(*segments[:3]),
@@ -624,11 +779,12 @@ class Tendrils:
         self.sim, screen = _frame_io(
             self.sim, self.params(), _f32(self.timer.time, self.device),
             _f32(self.timer.dt, self.device), self.config, self._view_size,
-            color_maps, color_alphas, seg, of, blur, bokeh,
+            cm, color_alphas, seg, of, blur, bokeh,
             stepping=not self.timer.paused,
             targets_live=self._targets_live,
             fast_resolve=fast_resolve_ok(self.config, self.state),
-            flow_off=flow_force_unused(self.state))
+            flow_off=flow_force_unused(self.state),
+            host_widths=host_widths(self.state))
         return screen
 
     def composite_flow(self, payload_grid):
@@ -641,6 +797,18 @@ class Tendrils:
         self.sim = dataclasses.replace(
             self.sim, flow=of_ops.composite_flow(self.sim.flow, payload),
             force=None)
+        return self
+
+    def set_color_map(self, color_map):
+        """Replace the colour-map grid (`f32[4, h, w]`), the config's
+        `color_map_res` following its shape — ref colorMap FBO
+        `src/index.js:94-96`."""
+        color_map = torch.as_tensor(color_map, dtype=torch.float32,
+                                    device=self.device)
+        if tuple(color_map.shape) != tuple(self.sim.color_map.shape):
+            self.config = dataclasses.replace(
+                self.config, color_map_res=tuple(color_map.shape[1:]))
+        self.sim = dataclasses.replace(self.sim, color_map=color_map)
         return self
 
     @property

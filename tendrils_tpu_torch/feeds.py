@@ -1,9 +1,11 @@
 """Synthetic inputs of the interactive frame (`Tendrils.step_draw_io`):
-the moving-bar camera of `bench.py`'s config-4 line and pointers moving on
-circles, fed the way the demo app feeds them (one camera upload and one
-pointer sample a frame, the pointer paths trimmed to the last 1/flowDecay
-ms as `tendrils_tpu/app/demo.py:633` trims them). Used by `chip_smoke.py`
-and `frame_profile.py`.
+the moving-bar camera of `bench.py`'s config-4 line, pointers moving on
+circles and, optionally, the demo's three colour maps, fed the way the
+demo app feeds them (one camera upload and one pointer sample a frame, the
+pointer paths trimmed to the last 1/flowDecay ms as
+`tendrils_tpu/app/demo.py:633` trims them, the colour maps passed every
+frame as `demo.py:626-653` passes them). Used by `chip_smoke.py` and
+`frame_profile.py`.
 """
 
 import math
@@ -11,11 +13,15 @@ import math
 import numpy as np
 
 from .flow_line import FlowLines
-from .media import OpticalFlow
+from .media import OpticalFlow, image_to_grid
 from .ops import coords
 
 DT = 1000.0 / 60.0
 OF_UNIFORMS = {"offset": 0.05, "speed": 0.08}
+# The demo's colour-map blend weights, mic / track / video
+# (`tendrils_tpu/app/demo.py:152-153`).
+COLOR_ALPHAS = (0.1, 0.3, 0.8)
+AUDIO_BINS = 512  # frequency bins of the demo's 1024-point analysers
 
 
 def camera_frame(i):
@@ -51,12 +57,26 @@ def pointer_lines(n_pointers, t_end, trail):
     return lines
 
 
+def audio_texture(rng):
+    """A synthetic audio texture as the demo's colour map: `f32[4, 1,
+    AUDIO_BINS]`, a spectrum in [0, 1] replicated to RGB with alpha 1
+    (`tendrils_tpu/audio/texture.py:42-48`)."""
+    v = rng.uniform(0.0, 1.0, (1, 1, AUDIO_BINS)).astype(np.float32)
+    return np.concatenate([v, v, v, np.ones_like(v)])
+
+
 class IoFeed:
     """The config-4 inputs of one engine: a camera ring on its device and
-    4 pointer paths, fed to `step_draw_io` once a frame."""
+    4 pointer paths, fed to `step_draw_io` once a frame. With
+    `color_maps`, also the demo's three colour maps every frame: two
+    synthetic audio textures (mic and track, made from `seed`) and the
+    camera frame's grid, blended 0.1 / 0.3 / 0.8."""
 
-    def __init__(self, eng, n_pointers=4):
+    def __init__(self, eng, n_pointers=4, color_maps=False, seed=0):
         self.eng = eng
+        rng = np.random.default_rng(seed)
+        self.audio = ((audio_texture(rng), audio_texture(rng)) if color_maps
+                      else None)
         self.ring = OpticalFlow(OF_UNIFORMS, device=eng.device)
         self.n_pointers = n_pointers
         self.lines = pointer_lines(n_pointers, eng.timer.time,
@@ -67,11 +87,16 @@ class IoFeed:
     def frame(self, i):
         """Camera frame `i` and a pointer sample, then one io frame."""
         eng = self.eng
-        self.ring.set_pixels(camera_frame(i))
+        frame = camera_frame(i)
+        self.ring.set_pixels(frame)
         eng.timer.tick()
         add_pointer_points(self.lines, self.n_pointers, eng.timer.time)
         self.lines.trim(trail_ms(eng.state["flowDecay"]), eng.timer.time)
+        maps = None
+        if self.audio is not None:
+            maps = (*self.audio, image_to_grid(frame))
         eng.step_draw_io(
+            color_maps=maps, color_alphas=COLOR_ALPHAS,
             segments=self.lines.segments(eng.timer.time, self.view_size,
                                          eng.config.flow_shape),
             of_frames=self.ring.device_buffers(), of_uniforms=OF_UNIFORMS)

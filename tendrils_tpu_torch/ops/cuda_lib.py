@@ -38,8 +38,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types; the last is the stream (every entry's).
 _SIGNATURES = {
-    "tt_pack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P],
-    "tt_splat": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "tt_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
+                _P, _P, _P, _P],
+    "tt_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "tt_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tt_gather_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P,
                               _P, _P, _P],
@@ -47,6 +48,8 @@ _SIGNATURES = {
     "tt_reconstruct": [_P, _P, _P, _P, _I, _P, _P, _P],
     "tt_gather_keyed_p1": [_P, _I, _I, _I, _P, _I, _F, _P, _P],
     "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "tt_gather_keyed_q15": [_P, _I, _I, _P, _P, _I, _F, _P, _P],
+    "tt_gather_keyed": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
 }
 
 launches = collections.Counter()

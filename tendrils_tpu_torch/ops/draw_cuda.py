@@ -1,23 +1,37 @@
 """Fused draw: both render passes (flow payload + view colour) from ONE
 segment sort, on hand-written CUDA kernels.
 
-The port of `tendrils_tpu/ops/draw_pallas.py` for the resident frame's
-variant (p0 derived from p1 and the velocity, a 1x1 colour map, the
-combined `tile << 20 | row id` sort key, in-kernel line widths up to
-`KMAX_WIDTH`):
+The port of `tendrils_tpu/ops/draw_pallas.py` in gather modes 0 and 1 (no
+row ids, or the combined `tile << 20 | row id` sort key), with in-kernel
+line widths up to `KMAX_WIDTH`:
 
   K1 `pack`    (csrc/pack.cu)    per segment: sort key, fixed-point p1,
-                                 q15 velocity word with the live bit;
-  sort         `torch.sort` of the combined key (the JAX package sorts
-               with `lax.sort` too), the other streams follow by index;
+                                 q15 velocity word with the live bit, and
+                                 optionally the fixed-point p0 word and the
+                                 rgba8 colour word;
+  sort         `torch.sort` of the key (the JAX package sorts with
+               `lax.sort` too), the other streams follow by index;
   K2 `splat`   (csrc/splat.cu)   per (segment, sample): box-footprint
                                  deposits into the padded 11-channel
                                  accumulator;
   K3 `resolve` (csrc/resolve.cu) per pixel: order-independent blend of
                                  both grids, fade, the decayed flow `eff`;
+                                 or the XLA resolve tail (`_widen_excess`,
+                                 `composite_over`) for line widths above
+                                 `KMAX_WIDTH` and the paused draw;
   K6 `reconstruct_resident` (csrc/gather.cu) per sorted row: the state
                                  reassembly alone, for frames that gather
                                  the force after editing the flow.
+
+Two stream layouts reach the splat. The resident frame (a step just before
+the draw) derives p0 in the splat from p1 and the velocity (`derive_p0`),
+its sort key from the same re-derivation (`key_recon`). Every other draw
+sends the exact p0 word and keys by it. Colours come from a 1x1 colour
+map's four scalars, computed in the splat, or, for a textured map, as the
+rgba8 word K1 packs. K1 and K2 are one kernel each whose optional streams
+are switched by null pointers; each variant counts under its own name
+(`pack`, `pack_rgba`, `pack_p0_rgba`; `splat`, `splat_rgba`,
+`splat_p0_rgba`; `_variant`).
 
 Each kernel's wrapper takes the plain PyTorch version (`pack_plain`,
 `splat_plain`, `resolve_plain`, `reconstruct_resident_plain`) when its
@@ -28,10 +42,13 @@ in f32 (the TPU's matmul operands are bf16) with float atomics, in
 run-dependent order.
 """
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..const import INERT
 from . import cuda_lib, not_ported
+from .splat import composite_over
 from .tile_geom import HALF, PAD_LO_H, PAD_LO_W, TILE_H, TILE_W, pad_dims
 
 N_CHAN = 11
@@ -44,6 +61,7 @@ G1_MAX_TILES = 1 << 11
 COLOR_MAX = 4.0
 KMAX_WIDTH = 8.0
 KSPAN = 9  # texels a box of width <= KMAX_WIDTH can touch along one axis
+MAX_BLUR = 32  # the XLA tail's largest box-blur radius
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -71,6 +89,11 @@ def _vec(v, device):
     return torch.as_tensor(v, dtype=_F32, device=device).reshape(-1)
 
 
+def _variant(kernel, p0, rgba):
+    """Counter name of a K1/K2 variant: `kernel[_p0][_rgba]`."""
+    return kernel + ("_p0" if p0 else "") + ("_rgba" if rgba else "")
+
+
 def _unq15(q):
     """q15 field -> [-1, 1] (`q * f32(2/HALF) - 1`)."""
     return q.to(_F32) * (2.0 / HALF) - 1.0
@@ -93,92 +116,63 @@ def _q15(v):
 # --- K1 pack -----------------------------------------------------------------
 
 
-def pack(scal, p1_pix, vel, live, idx, *, grid_hw, pscale):
-    """K1: per-segment sort key, p1 and velocity words (`i32[N]` each).
+def pack(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
+         pos=None, mapped=None):
+    """K1: per-segment sort key, p1 and velocity words (`i32[N]` each),
+    and optionally the p0 and rgba8 words.
 
     `scal`: `f32[32]` per-frame scalars (`_draw_scal`); `p1_pix`: `f32[N, 2]`
     end points in window px; `vel`: `f32[2, N]`; `live`: `f32[N]`; `idx`:
-    `i32[N]` row ids. Returns `(keym, p1, vl)`, keym = tile << 20 | id."""
-    if cuda_lib.on_cpu(scal, p1_pix, vel, live, idx):
+    `i32[N]` row ids (gather mode 1: key = tile << 20 | id) or None (gather
+    mode 0: key = tile). With `p0_pix` (`f32[N, 2]`) the p0 word is emitted
+    and the key comes from the exact quantised p0 (`emit_p0`); without it,
+    from the p0 the splat re-derives from p1 and the velocity
+    (`key_recon`). With `mapped` (`f32[4, N]`, the colour-map lookup times
+    colorMapAlpha) and `pos` (`f32[2, N]` NDC positions, for the vignette)
+    the render colour model is packed to an rgba8 word (`emit_rgba`).
+    Returns `(keym, p1, vl, p0 or None, rgba or None)`."""
+    tensors = [t for t in (scal, p1_pix, vel, live, idx, p0_pix, pos, mapped)
+               if t is not None]
+    if cuda_lib.on_cpu(*tensors):
         return pack_plain(scal, p1_pix, vel, live, idx, grid_hw=grid_hw,
-                          pscale=pscale)
+                          pscale=pscale, p0_pix=p0_pix, pos=pos,
+                          mapped=mapped)
     n = p1_pix.shape[0]
     h, w = grid_hw
     cuda_lib.check(scal, "scal", _F32, (32,))
     cuda_lib.check(p1_pix, "p1_pix", _F32, (n, 2))
     cuda_lib.check(vel, "vel", _F32, (2, n))
     cuda_lib.check(live, "live", _F32, (n,))
-    cuda_lib.check(idx, "idx", _I32, (n,))
-    keym, p1, vl = (torch.empty(n, dtype=_I32, device=p1_pix.device)
-                    for _ in range(3))
+    if idx is not None:
+        cuda_lib.check(idx, "idx", _I32, (n,))
+    if p0_pix is not None:
+        cuda_lib.check(p0_pix, "p0_pix", _F32, (n, 2))
+    if mapped is not None:
+        cuda_lib.check(mapped, "mapped", _F32, (4, n))
+        cuda_lib.check(pos, "pos", _F32, (2, n))
+
+    def new():
+        return torch.empty(n, dtype=_I32, device=p1_pix.device)
+
+    keym, p1, vl = new(), new(), new()
+    p0 = None if p0_pix is None else new()
+    rgba = None if mapped is None else new()
     tiles_x = pad_dims(h, w)[1] // TILE_W
-    cuda_lib.launch("tt_pack", "pack", scal, p1_pix, vel, live, idx, n, h,
-                    w, tiles_x, float(pscale), keym, p1, vl)
-    return keym, p1, vl
+    cuda_lib.launch("tt_pack", _variant("pack", p0 is not None,
+                                        rgba is not None),
+                    scal, p1_pix, vel, live, idx, p0_pix,
+                    None if mapped is None else pos, mapped, n, h, w,
+                    tiles_x, float(pscale), keym, p1, vl, p0, rgba)
+    return keym, p1, vl, p0, rgba
 
 
-def pack_plain(scal, p1_pix, vel, live, idx, *, grid_hw, pscale):
-    """Plain version of K1 (`draw_pallas._pack_core` with key_recon, no
-    rgba, gather mode 1)."""
-    cuda_lib.plain_calls["pack"] += 1
-    h, w = grid_hw
-    tiles_x = pad_dims(h, w)[1] // TILE_W
-    sl_raw = scal[0]
-    sl = torch.clamp(sl_raw, min=1e-12)
-    x1q, y1q = _qpos(p1_pix[:, 0], p1_pix[:, 1], grid_hw, pscale)
-    p1 = y1q * (HALF + 1) + x1q
-    qx = _q15(vel[0] / sl)
-    qy = _q15(vel[1] / sl)
-    live_bit = (live > 0.5).to(_I32) * (1 << 30)
-    vl = live_bit + qy * (HALF + 1) + qx
-
-    # Segment key from the p0 the splat will reconstruct (bit for bit).
-    hwm = torch.maximum(torch.clamp(scal[2], 1.0, KMAX_WIDTH),
-                        torch.clamp(scal[3], 1.0, KMAX_WIDTH)) * 0.5
-    inv_p = 1.0 / pscale
-    p1xd = x1q.to(_F32) * inv_p
-    p1yd = y1q.to(_F32) * inv_p
-    p0xd = torch.clamp(p1xd - _unq15(qx) * sl_raw * (scal[30] * 0.5 * w),
-                       1.0, PAD_LO_W + w + 1.0)
-    p0yd = torch.clamp(p1yd - _unq15(qy) * sl_raw * (scal[31] * 0.5 * h),
-                       1.0, PAD_LO_H + h + 1.0)
-    top_x = torch.clamp(torch.minimum(p0xd, p1xd) - hwm, min=0.0)
-    top_y = torch.clamp(torch.minimum(p0yd, p1yd) - hwm, min=0.0)
-    krow = torch.floor(top_y).to(_I32) // TILE_H
-    kcol = torch.floor(top_x).to(_I32) // TILE_W
-    return (krow * tiles_x + kcol) * (1 << 20) + idx, p1, vl
-
-
-# --- K2 splat ----------------------------------------------------------------
-
-
-def splat(scal, p1, vl, *, samples, grid_hw, pscale):
-    """K2: expand each sorted segment into `samples` deposit points and
-    accumulate both passes' box footprints. Returns the padded accumulator
-    `f32[N_CHAN, hp, wp]` (the wrapper zeroes it; the kernel adds)."""
-    if cuda_lib.on_cpu(scal, p1, vl):
-        return splat_plain(scal, p1, vl, samples=samples, grid_hw=grid_hw,
-                           pscale=pscale)
-    n = p1.shape[0]
-    h, w = grid_hw
-    hp, wp = pad_dims(h, w)
-    cuda_lib.check(scal, "scal", _F32, (32,))
-    cuda_lib.check(p1, "p1", _I32, (n,))
-    cuda_lib.check(vl, "vl", _I32, (n,))
-    accum = torch.zeros((N_CHAN, hp, wp), dtype=_F32, device=p1.device)
-    cuda_lib.launch("tt_splat", "splat", scal, p1, vl, n, samples, h, w, hp,
-                    wp, float(pscale), accum)
-    return accum
-
-
-def _scalar_colors(scal, vx, vy, p1x, p1y, grid_hw):
-    """Render colour model of a 1x1 colour map (`src/render/index.vert:
-    57-94`; draw_pallas `_kernel` scalar_color) -> (r, g, b, a)."""
-    h, w = grid_hw
-    inv_sl = 1.0 / torch.clamp(scal[0], min=1e-12)
-    vnx = vx * inv_sl
-    vny = vy * inv_sl
-    mr, mg, mb, ma = scal[16], scal[17], scal[18], scal[19]
+def _color_model(scal, vnx, vny, posx, posy, mapped):
+    """The render colour model (`src/render/index.vert:57-94`) of segments
+    with velocity / speedLimit `vnx`, `vny` at NDC positions `posx`, `posy`
+    and colour-map values `mapped = (r, g, b, a)`: `[r, g, b, a]` before
+    any clamp or quantisation, op for op as `draw_pallas._emit_render_rgba`
+    (K1's rgba8 word) and the splat's scalar colour (K2), which share it."""
+    mr, mg, mb, ma = mapped
     base, flow_c = scal[7:11], scal[11:15]
     speed_rate = torch.clamp(
         (vnx * vnx + vny * vny) / torch.clamp(scal[4], min=1e-12), max=1.0)
@@ -199,17 +193,121 @@ def _scalar_colors(scal, vx, vy, p1x, p1y, grid_hw):
     rgb = [clip01(base[k] * base[3]) + clip01((mr, mg, mb)[k] * ma)
            + clip01(flow_c[k] * fa[k] * flow_c[3]) for k in range(3)]
     ca = clip01(base[3]) + clip01(ma) + clip01(flow_c[3])
+    d = torch.sqrt(posx * posx + posy * posy)
+    amt = torch.clamp(1.0 - d, max=1.0)
+    ut = 1.0 - amt
+    bz = (0.2 * ut + amt) * ut + amt
+    vig = torch.clamp(torch.clamp(bz, min=0.0), 0.2, 1.0)
+    return [*rgb, ca * speed_rate * vig]
+
+
+def _render_rgba(scal, vnx, vny, posx, posy, mapped):
+    """The render colour model packed to rgba8
+    (`draw_pallas._emit_render_rgba`): r, g, b take 255 levels of [0,
+    COLOR_MAX], a 127 (bit 31 stays clear)."""
+    r, g, b, a = _color_model(scal, vnx, vny, posx, posy, mapped)
+
+    def q8(v, levels):
+        return torch.round(torch.clamp(v / COLOR_MAX, 0.0, 1.0)
+                           * levels).to(_I32)
+
+    return (q8(r, 255) + q8(g, 255) * 256 + q8(b, 255) * 65536
+            + q8(a, 127) * 16777216)
+
+
+def pack_plain(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
+               pos=None, mapped=None):
+    """Plain version of K1 (`draw_pallas._pack_core`)."""
+    cuda_lib.plain_calls[_variant("pack", p0_pix is not None,
+                                  mapped is not None)] += 1
+    h, w = grid_hw
+    tiles_x = pad_dims(h, w)[1] // TILE_W
+    sl_raw = scal[0]
+    sl = torch.clamp(sl_raw, min=1e-12)
+    x1q, y1q = _qpos(p1_pix[:, 0], p1_pix[:, 1], grid_hw, pscale)
+    p1 = y1q * (HALF + 1) + x1q
+    vnx = vel[0] / sl
+    vny = vel[1] / sl
+    qx = _q15(vnx)
+    qy = _q15(vny)
+    live_bit = (live > 0.5).to(_I32) * (1 << 30)
+    vl = live_bit + qy * (HALF + 1) + qx
+    rgba = None if mapped is None else _render_rgba(scal, vnx, vny, pos[0],
+                                                    pos[1], mapped)
+
+    hwm = torch.maximum(torch.clamp(scal[2], 1.0, KMAX_WIDTH),
+                        torch.clamp(scal[3], 1.0, KMAX_WIDTH)) * 0.5
+    inv_p = 1.0 / pscale
+    p0 = None
+    if p0_pix is None:
+        # Key from the p0 the splat will reconstruct (bit for bit).
+        p1xd = x1q.to(_F32) * inv_p
+        p1yd = y1q.to(_F32) * inv_p
+        p0xd = torch.clamp(
+            p1xd - _unq15(qx) * sl_raw * (scal[30] * 0.5 * w), 1.0,
+            PAD_LO_W + w + 1.0)
+        p0yd = torch.clamp(
+            p1yd - _unq15(qy) * sl_raw * (scal[31] * 0.5 * h), 1.0,
+            PAD_LO_H + h + 1.0)
+        top_x = torch.clamp(torch.minimum(p0xd, p1xd) - hwm, min=0.0)
+        top_y = torch.clamp(torch.minimum(p0yd, p1yd) - hwm, min=0.0)
+    else:
+        x0q, y0q = _qpos(p0_pix[:, 0], p0_pix[:, 1], grid_hw, pscale)
+        p0 = y0q * (HALF + 1) + x0q
+        top_x = torch.clamp(torch.minimum(x0q, x1q).to(_F32) * inv_p - hwm,
+                            min=0.0)
+        top_y = torch.clamp(torch.minimum(y0q, y1q).to(_F32) * inv_p - hwm,
+                            min=0.0)
+    krow = torch.floor(top_y).to(_I32) // TILE_H
+    kcol = torch.floor(top_x).to(_I32) // TILE_W
+    key = krow * tiles_x + kcol
+    keym = key if idx is None else key * (1 << 20) + idx
+    return keym, p1, vl, p0, rgba
+
+
+# --- K2 splat ----------------------------------------------------------------
+
+
+def splat(scal, p1, vl, *, samples, grid_hw, pscale, p0=None, rgba=None):
+    """K2: expand each sorted segment into `samples` deposit points and
+    accumulate both passes' box footprints. `p0`: the sorted p0 words, or
+    None to derive p0 from p1 and the velocity; `rgba`: the sorted rgba8
+    words, or None to compute the colour model of a 1x1 colour map from
+    the scalars. Returns the padded accumulator `f32[N_CHAN, hp, wp]` (the
+    wrapper zeroes it; the kernel adds)."""
+    tensors = [t for t in (scal, p1, vl, p0, rgba) if t is not None]
+    if cuda_lib.on_cpu(*tensors):
+        return splat_plain(scal, p1, vl, samples=samples, grid_hw=grid_hw,
+                           pscale=pscale, p0=p0, rgba=rgba)
+    n = p1.shape[0]
+    h, w = grid_hw
+    hp, wp = pad_dims(h, w)
+    cuda_lib.check(scal, "scal", _F32, (32,))
+    cuda_lib.check(p1, "p1", _I32, (n,))
+    cuda_lib.check(vl, "vl", _I32, (n,))
+    for t, name in ((p0, "p0"), (rgba, "rgba")):
+        if t is not None:
+            cuda_lib.check(t, name, _I32, (n,))
+    accum = torch.zeros((N_CHAN, hp, wp), dtype=_F32, device=p1.device)
+    cuda_lib.launch("tt_splat", _variant("splat", p0 is not None,
+                                         rgba is not None),
+                    scal, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
+                    float(pscale), accum)
+    return accum
+
+
+def _scalar_colors(scal, vx, vy, p1x, p1y, grid_hw):
+    """Render colour model of a 1x1 colour map (draw_pallas `_kernel`
+    scalar_color) from the un-quantised velocity, the vignette position
+    derived from p1 -> (r, g, b, a) clamped to [0, COLOR_MAX]."""
+    h, w = grid_hw
+    inv_sl = 1.0 / torch.clamp(scal[0], min=1e-12)
     posx = ((p1x - PAD_LO_W) * (2.0 / w) - 1.0) \
         / torch.clamp(scal[30], min=1e-12)
     posy = ((p1y - PAD_LO_H) * (2.0 / h) - 1.0) \
         / torch.clamp(scal[31], min=1e-12)
-    d2 = torch.sqrt(posx * posx + posy * posy)
-    amt = torch.clamp(1.0 - d2, max=1.0)
-    ut = 1.0 - amt
-    bz = (0.2 * ut + amt) * ut + amt
-    vig = torch.clamp(torch.clamp(bz, min=0.0), 0.2, 1.0)
-    ca = ca * speed_rate * vig
-    return [torch.clamp(c, 0.0, COLOR_MAX) for c in (*rgb, ca)]
+    return [torch.clamp(c, 0.0, COLOR_MAX) for c in _color_model(
+        scal, vx * inv_sl, vy * inv_sl, posx, posy, scal[16:20])]
 
 
 def _cover(idx, lo, hi):
@@ -218,11 +316,13 @@ def _cover(idx, lo, hi):
                        0.0, 1.0)
 
 
-def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale):
+def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
+                rgba=None):
     """Plain version of K2: the same per-sample arithmetic, deposited with
     one `index_add_` per footprint offset (<= 9 x 9 offsets, both channel
     groups and all samples at once)."""
-    cuda_lib.plain_calls["splat"] += 1
+    cuda_lib.plain_calls[_variant("splat", p0 is not None,
+                                  rgba is not None)] += 1
     h, w = grid_hw
     hp, wp = pad_dims(h, w)
     dev = p1.device
@@ -234,16 +334,25 @@ def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale):
     vel_u = vl & ((1 << 30) - 1)
     vx = _unq15(vel_u & HALF) * sl
     vy = _unq15(vel_u >> 15) * sl
-    # derive_p0: Euler inverse in pixel space.
-    p0x = torch.clamp(p1x - vx * (scal[30] * 0.5 * w), 1.0,
-                      PAD_LO_W + w + 1.0)
-    p0y = torch.clamp(p1y - vy * (scal[31] * 0.5 * h), 1.0,
-                      PAD_LO_H + h + 1.0)
+    if p0 is None:
+        # derive_p0: Euler inverse in pixel space.
+        p0x = torch.clamp(p1x - vx * (scal[30] * 0.5 * w), 1.0,
+                          PAD_LO_W + w + 1.0)
+        p0y = torch.clamp(p1y - vy * (scal[31] * 0.5 * h), 1.0,
+                          PAD_LO_H + h + 1.0)
+    else:
+        p0x = (p0 & HALF).to(_F32) * inv_p
+        p0y = (p0 >> 15).to(_F32) * inv_p
     dx = p1x - p0x
     dy = p1y - p0y
     ascale = live * torch.clamp(torch.maximum(dx.abs(), dy.abs()), min=1.0) \
         / samples
-    cr, cg, cb, ca = _scalar_colors(scal, vx, vy, p1x, p1y, grid_hw)
+    if rgba is None:
+        cr, cg, cb, ca = _scalar_colors(scal, vx, vy, p1x, p1y, grid_hw)
+    else:
+        c8 = COLOR_MAX / 255.0
+        cr, cg, cb = (((rgba >> k) & 255).to(_F32) * c8 for k in (0, 8, 16))
+        ca = ((rgba >> 24) & 127).to(_F32) * (COLOR_MAX / 127.0)
     wf = torch.clamp(torch.sqrt(vx * vx + vy * vy) / sl, max=1.0)
 
     # All samples at once: [S, N].
@@ -309,26 +418,40 @@ def _draw_scal(speed_limit, time, flow_width, line_width, speed_alpha,
         torch.zeros(10, device=device), view_size)])
 
 
-def _bin_and_splat(scal, keym, vl, ride, *, samples, grid_hw, pscale):
-    """Sort the segments by their combined key, then splat them (K2).
+def _bin_and_splat(scal, words, ride, *, ids, samples, grid_hw, pscale):
+    """Sort the segments by their key, then splat them (K2).
 
-    `ride`: the exact f32 positions `[x, y]` riding the sort (resident
-    stream). Keys are unique in gather mode 1, so the order is fully
-    determined. The sorted p1 word is recomputed from the sorted exact
+    `words`: K1's `(keym, p1, vl, p0, rgba)`, p0 and rgba None when not
+    emitted. `ride`: the exact f32 positions `[x, y]` riding the sort
+    (resident stream), or None. In gather mode 1 keys are unique, so the
+    order is fully determined; in gather mode 0 only the key order is (the
+    deposits are sums, so the order within a tile does not matter). With
+    `ride`, the sorted p1 word is recomputed from the sorted exact
     positions (the JAX `p1_from_ride`: the same f32 pixel transform, clip
-    and round as the pack, so bit-identical). Returns `(accum, aux,
-    ride_sorted)`: aux = `(idx_s, p1_s)`, ride_sorted = `[x_s, y_s, vl_s]`."""
+    and round as the pack, so bit-identical); without it, p1 is sorted.
+    Returns `(accum, aux, ride_sorted)`: aux = `(idx_s, p1_s)`, the sorted
+    row ids of gather mode 1 (`ids`) and p1 words (None without `ids`),
+    ride_sorted =
+    `[x_s, y_s, vl_s]` (None without `ride`)."""
     h, w = grid_hw
+    keym, p1, vl, p0, rgba = words
     keym_s, perm = torch.sort(keym)
     vl_s = vl[perm]
-    x_s, y_s = ride[0][perm], ride[1][perm]
-    x1q, y1q = _qpos((x_s * scal[30] * 0.5 + 0.5) * w,
-                     (y_s * scal[31] * 0.5 + 0.5) * h, grid_hw, pscale)
-    p1_s = y1q * (HALF + 1) + x1q
-    idx_s = keym_s & ((1 << 20) - 1)
+    p0_s = None if p0 is None else p0[perm]
+    rgba_s = None if rgba is None else rgba[perm]
+    ride_s = None
+    if ride is None:
+        p1_s = p1[perm]
+    else:
+        x_s, y_s = ride[0][perm], ride[1][perm]
+        x1q, y1q = _qpos((x_s * scal[30] * 0.5 + 0.5) * w,
+                         (y_s * scal[31] * 0.5 + 0.5) * h, grid_hw, pscale)
+        p1_s = y1q * (HALF + 1) + x1q
+        ride_s = [x_s, y_s, vl_s]
     accum = splat(scal, p1_s, vl_s, samples=samples, grid_hw=grid_hw,
-                  pscale=pscale)
-    return accum, (idx_s, p1_s), [x_s, y_s, vl_s]
+                  pscale=pscale, p0=p0_s, rgba=rgba_s)
+    aux = (keym_s & ((1 << 20) - 1), p1_s) if ids else None
+    return accum, aux, ride_s
 
 
 def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
@@ -339,25 +462,29 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
                           derive_p0=False, view_size=None,
                           mapped_scalar=None, raw_accum=False, reorder=None,
                           flow_off=False):
-    """Pack (K1), sort and splat (K2) both passes of the resident frame.
+    """Pack (K1), sort and splat (K2) both passes of a draw.
 
-    The arguments are those of the JAX function. The port runs its
-    resident variant only: `derive_p0=True` with `view_size`,
-    `mapped_scalar` (1x1 colour map), `idx` and `ride=[x, y]`, and
-    `raw_accum=True`; `p0_pix`, `pos_ndc` and `mapped` are then unused
-    (the JAX pack ignores them too). Returns `(accum f32[11, hp, wp], aux,
-    ride_sorted)` (see `_bin_and_splat`) over the N real rows — the TPU's
-    block padding has no counterpart."""
-    del p0_pix, pos_ndc, mapped
-    if not (derive_p0 and mapped_scalar is not None and idx is not None
-            and ride is not None):
-        raise not_ported("the fused draw without the resident stream "
-                         "(p0 stream, textured colour map)", 7)
-    if len(ride) != 2:
+    The arguments are those of the JAX function. `derive_p0=True` (with
+    `view_size`; a step just preceded the draw) drops the p0 stream, which
+    the splat re-derives; otherwise `p0_pix` is packed. `mapped_scalar`
+    (`f32[4]`, with derive_p0) moves the colour model of a 1x1 colour map
+    into the splat; otherwise `mapped` (`f32[4, N]`) and `pos_ndc` are
+    packed to rgba8. `idx` selects gather mode 1 (aux streams for the
+    force gather) and `ride=[x, y]` the resident stream. Returns
+    `(accum f32[11, hp, wp], None, aux, ride_sorted)` with `raw_accum`,
+    else `(flow_parts, view_parts, aux, ride_sorted)`, each part
+    `(num, wsum, logt)` over the content grid (`draw_pallas.py:1030-1035`);
+    aux is None without `idx`, ride_sorted None without `ride` (see
+    `_bin_and_splat`). All over the N real rows: the TPU's block padding
+    has no counterpart."""
+    if derive_p0 == (p0_pix is not None):
+        raise ValueError("give p0_pix exactly when derive_p0 is False")
+    if (mapped_scalar is None) == (mapped is None):
+        raise ValueError("give exactly one of mapped and mapped_scalar")
+    if mapped_scalar is not None and not derive_p0:
+        raise ValueError("mapped_scalar requires derive_p0")
+    if ride is not None and len(ride) != 2:
         raise not_ported("live targets riding the sort", 7)
-    if not raw_accum:
-        raise not_ported("the XLA resolve tail (line widths above "
-                         "KMAX_WIDTH)", 7)
     if flow_off:
         raise not_ported("flow_off (flowWeight == 0)", 7)
     if reorder is not None:
@@ -365,23 +492,85 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
     h, w = grid_hw
     hp, wp = pad_dims(h, w)
     n = p1_pix.shape[0]
-    if n > G1_MAX_ROWS or (hp // TILE_H) * (wp // TILE_W) > G1_MAX_TILES \
-            or (idx_bound is not None and idx_bound > n):
+    if idx is not None and (
+            n > G1_MAX_ROWS or (hp // TILE_H) * (wp // TILE_W) > G1_MAX_TILES
+            or (idx_bound is not None and idx_bound > n)):
         raise not_ported("gather modes 2 and 3 (over 2^20 rows or 2048 "
                          "tiles: configs 3 and 5)", 7)
     pscale = _pos_scale(hp, wp)
     dev = p1_pix.device
+    zeros4 = torch.zeros(4, device=dev)
     scal = _draw_scal(speed_limit, time, flow_width, line_width,
                       speed_alpha, sin_decay, flow_decay,
-                      torch.zeros(4, device=dev) if base_color is None
-                      else base_color,
-                      torch.zeros(4, device=dev) if flow_color is None
-                      else flow_color,
-                      mapped_scalar, view_size, dev)
-    keym, _, vl = pack(scal, p1_pix, vel, live, idx, grid_hw=grid_hw,
-                       pscale=pscale)
-    return _bin_and_splat(scal, keym, vl, ride, samples=samples,
-                          grid_hw=grid_hw, pscale=pscale)
+                      zeros4 if base_color is None else base_color,
+                      zeros4 if flow_color is None else flow_color,
+                      zeros4 if mapped_scalar is None else mapped_scalar,
+                      torch.zeros(2, device=dev) if view_size is None
+                      else view_size, dev)
+    words = pack(scal, p1_pix, vel, live, idx, grid_hw=grid_hw,
+                 pscale=pscale, p0_pix=p0_pix,
+                 pos=None if mapped is None else pos_ndc.contiguous(),
+                 mapped=mapped)
+    accum, aux, ride_s = _bin_and_splat(scal, words, ride,
+                                        ids=idx is not None, samples=samples,
+                                        grid_hw=grid_hw, pscale=pscale)
+    if raw_accum:
+        return accum, None, aux, ride_s
+    out = accum[:, PAD_LO_H:PAD_LO_H + h, PAD_LO_W:PAD_LO_W + w]
+    # The flow payload's stamp numerator is time x wsum (constant stamp).
+    fnum = torch.cat([out[0:2], (time * out[3])[None], out[2:3]])
+    return (fnum, out[3], out[4]), (out[5:9], out[9], out[10]), aux, ride_s
+
+
+# --- the XLA resolve tail ----------------------------------------------------
+
+
+def _widen_plan(width):
+    """`(radius, scale)` of `_widen_excess` for a host line width, in f32
+    as the JAX function computes them on the device."""
+    f = np.float32
+    width = max(f(width), f(1.0))
+    w_in = min(width, f(KMAX_WIDTH))  # applied in-kernel
+    rem = np.sqrt(max(width * width - w_in * w_in, f(0.0)))
+    return max((rem - f(1.0)) * f(0.5), f(0.0)), width / w_in
+
+
+def _box_blur(img, radius):
+    """Separable box blur of `img: f32[C, H, W]` over rows, then columns,
+    of radius `round(radius)` clamped to MAX_BLUR: edge-padded cumulative
+    sums (the port of `draw_pallas._box_blur_traced`, with the radius a
+    host number)."""
+    r = int(np.clip(np.round(np.float32(radius)), 0, MAX_BLUR))
+    inv = float(np.float32(1.0) / np.float32(2 * r + 1))
+
+    def blur_axis(x, axis):
+        pad = ((0, 0, MAX_BLUR + 1, MAX_BLUR) if axis == 1
+               else (MAX_BLUR + 1, MAX_BLUR, 0, 0))
+        csum = torch.cumsum(F.pad(x[None], pad, mode="replicate")[0],
+                            dim=axis)
+        n = x.shape[axis]
+        return (csum.narrow(axis, MAX_BLUR + 1 + r, n)
+                - csum.narrow(axis, MAX_BLUR - r, n)) * inv
+
+    return blur_axis(blur_axis(img, 1), 2)
+
+
+def _widen_excess(parts, width):
+    """Widths <= KMAX_WIDTH are applied in the splat: the identity. Wider
+    strokes get the excess as a variance-matched box blur of the
+    accumulation and their mass scaled to the width
+    (`draw_pallas._widen_excess`). The JAX function branches on the device
+    with `lax.cond`; here `width` is a host number and the branch is taken
+    on the host. A tensor width is read back (one synchronisation)."""
+    radius, scale = _widen_plan(float(width))
+    if radius < 0.5 and scale == 1.0:
+        return parts
+    num, wsum, logt = parts
+    stack = torch.cat([num, wsum[None], logt[None]])
+    if radius >= 0.5:
+        stack = _box_blur(stack, radius)
+    stack = stack * float(scale)
+    return stack[:-2], stack[-2], stack[-1]
 
 
 # --- K3 resolve --------------------------------------------------------------
@@ -511,16 +700,24 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
                params, time, *, grid_hw, samples=2, idx=None, ride=None,
                idx_bound=None, psum=None, derive_p0=False, view_size=None,
                mapped_scalar=None, resolve="kernel", read_time=None,
-               want_eff=False, flow_off=False, reorder=None):
+               want_eff=False, flow_off=False, reorder=None,
+               host_widths=None):
     """Full fused draw: accumulate (K1, sort, K2) with the in-kernel line
-    widths and colour model, then resolve both blends (K3). Returns
-    `(new_flow, new_view, aux, ride_sorted[, eff])`."""
-    if resolve != "kernel":
-        raise not_ported("the XLA resolve tail (line widths above "
-                         "KMAX_WIDTH)", 7)
+    widths and colour model, then resolve both blends: with K3
+    (`resolve="kernel"`, widths <= KMAX_WIDTH, which also applies
+    `autoClearView` and the fade to `view`), or with the XLA tail
+    (`resolve="xla"`: `_widen_excess` and `composite_over`, over a `view`
+    the caller has already cleared and faded). `host_widths`: the
+    `(flowWidth, lineWidth)` host numbers that decide the tail's blur
+    branch (read back from `params` when not given). Returns `(new_flow,
+    new_view, aux, ride_sorted[, eff])`; `eff`, the flow decayed to
+    `read_time`, only from K3."""
+    if resolve not in ("kernel", "xla"):
+        raise ValueError(f"unknown resolve: {resolve}")
     if psum is not None:
         raise not_ported("the sharded draw", 12)
-    accum, aux, ride_s = fused_draw_accumulate(
+    kernel = resolve == "kernel"
+    out = fused_draw_accumulate(
         grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
         params["speedLimit"], time, idx=idx, ride=ride,
         idx_bound=idx_bound, samples=samples, derive_p0=derive_p0,
@@ -529,11 +726,16 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
         speed_alpha=params["speedAlpha"],
         sin_decay=torch.sin(time * params["flowDecay"]),
         flow_decay=params["flowDecay"], base_color=params["baseColor"],
-        flow_color=params["flowColor"], raw_accum=True, flow_off=flow_off,
+        flow_color=params["flowColor"], raw_accum=kernel, flow_off=flow_off,
         reorder=reorder)
-    res = resolve_fused(
-        accum, flow, view, params["fadeColor"] * params["autoFade"],
-        params["autoClearView"], time,
-        time if read_time is None else read_time, params["flowDecay"],
-        params["flowWidth"], params["lineWidth"], want_eff=want_eff)
-    return (res[0], res[1], aux, ride_s, *res[2:])
+    aux, ride_s = out[2:]
+    if kernel:
+        res = resolve_fused(
+            out[0], flow, view, params["fadeColor"] * params["autoFade"],
+            params["autoClearView"], time,
+            time if read_time is None else read_time, params["flowDecay"],
+            params["flowWidth"], params["lineWidth"], want_eff=want_eff)
+        return (res[0], res[1], aux, ride_s, *res[2:])
+    fw, lw = host_widths or (params["flowWidth"], params["lineWidth"])
+    return (composite_over(flow, *_widen_excess(out[0], fw)),
+            composite_over(view, *_widen_excess(out[1], lw)), aux, ride_s)

@@ -10,11 +10,16 @@ The port of `tendrils_tpu/ops/gather_pallas.py` for the slice:
       is its plain version);
   K8 `bilinear_gather_keyed_p1` (csrc/gather.cu) per sorted row: K4's
       gather half alone, for frames that edit the flow between the draw
-      and the gather (K4 == K8 + K6 `draw_cuda.reconstruct_resident`).
+      and the gather (K4 == K8 + K6 `draw_cuda.reconstruct_resident`);
+  K7 `bilinear_gather_keyed_q15` (csrc/gather.cu) per sorted row: K8's
+      gather of the decayed flow, packed as two q15 fields over
+      +-speedLimit, the word the non-resident frame un-sorts;
+  K12 `bilinear_gather_keyed` (csrc/gather.cu) per point: the gather at
+      padded-grid float coords.
 
 The TPU kernels sort points by tile, gather through MXU matmuls and
 un-sort, because Mosaic has no vector gather; a per-point load computes the
-same function, so neither kernel sorts. The keyed variants (tile keys
+same function, so no kernel here sorts. The keyed variants (tile keys
 precomputed by the draw) need no keys here.
 """
 
@@ -124,3 +129,88 @@ def bilinear_gather_keyed_p1_plain(grid, p1_packed, *, inv_p):
     """Plain version of K8: the gather half of K4's."""
     cuda_lib.plain_calls["gather_keyed_p1"] += 1
     return _gather_p1(grid, p1_packed, inv_p)
+
+
+def bilinear_gather_keyed_q15(grid, p1_packed, inv_sl, *, inv_p):
+    """K7: sample the decayed flow `grid: f32[2, H, W]` (content layout) at
+    the packed p1 words `i32[M]` (`1/inv_p` px, padded coordinates),
+    CLAMP_TO_EDGE, and pack the force as `q(fy) * (HALF + 1) + q(fx)`,
+    `q(v) = round((clip(v * inv_sl, -1, 1) * 0.5 + 0.5) * HALF)`. `inv_sl`:
+    the device f32 `1 / max(speedLimit, 1e-12)`. Returns `i32[M]` in input
+    (sorted) order. (The JAX function also takes the draw's tile keys; the
+    port needs none.)"""
+    inv_sl = torch.as_tensor(inv_sl, dtype=_F32,
+                             device=grid.device).reshape(1)
+    if cuda_lib.on_cpu(grid, p1_packed, inv_sl):
+        return bilinear_gather_keyed_q15_plain(grid, p1_packed, inv_sl,
+                                               inv_p=inv_p)
+    _, h, w = grid.shape
+    m = p1_packed.shape[0]
+    cuda_lib.check(grid, "grid", _F32, (2, h, w))
+    cuda_lib.check(p1_packed, "p1_packed", _I32, (m,))
+    out = torch.empty(m, dtype=_I32, device=grid.device)
+    cuda_lib.launch("tt_gather_keyed_q15", "gather_keyed_q15", grid, h, w,
+                    p1_packed, inv_sl, m, float(inv_p), out)
+    return out
+
+
+def bilinear_gather_keyed_q15_plain(grid, p1_packed, inv_sl, *, inv_p):
+    """Plain version of K7: K8's gather (`_gather_p1`), then the q15 pack
+    (gather_pallas.py:222-232)."""
+    cuda_lib.plain_calls["gather_keyed_q15"] += 1
+    f = _gather_p1(grid, p1_packed, inv_p)
+
+    def q(v):
+        t = torch.clamp(v * inv_sl, -1.0, 1.0) * 0.5 + 0.5
+        return torch.round(t * HALF).to(_I32)
+
+    return q(f[1]) * (HALF + 1) + q(f[0])
+
+
+def bilinear_gather_keyed(grid, xs, ys):
+    """K12: sample `grid: f32[C, H, W]` (content layout) at padded-grid
+    pixel coords `xs`, `ys: f32[M]` (content coords + PAD_LO_W, PAD_LO_H),
+    bilinearly, a corner outside the content weighing 0; on points within
+    half a texel of the content's edge texel centres, as every caller
+    clamps them, this is CLAMP_TO_EDGE sampling. Returns `f32[C, M]` in
+    input order. (The JAX function also takes each point's tile key, which
+    its tile-binned matmuls need; the port's per-point loads need none.)"""
+    if cuda_lib.on_cpu(grid, xs, ys):
+        return bilinear_gather_keyed_plain(grid, xs, ys)
+    c, h, w = grid.shape
+    m = xs.shape[0]
+    cuda_lib.check(grid, "grid", _F32, (c, h, w))
+    cuda_lib.check(xs, "xs", _F32, (m,))
+    cuda_lib.check(ys, "ys", _F32, (m,))
+    out = torch.empty((c, m), dtype=_F32, device=grid.device)
+    cuda_lib.launch("tt_gather_keyed", "gather_keyed", grid, c, h, w, xs, ys,
+                    m, out)
+    return out
+
+
+def bilinear_gather_keyed_plain(grid, xs, ys):
+    """Plain version of K12, with the TPU kernel's arithmetic (weights `1 -
+    frac` and `1 -` that, gather_pallas.py:113-118; rows summed, then
+    across rows)."""
+    cuda_lib.plain_calls["gather_keyed"] += 1
+    c, h, w = grid.shape
+    gx = xs - 0.5
+    gy = ys - 0.5
+    c0f = torch.floor(gx)
+    r0f = torch.floor(gy)
+    wx0 = 1.0 - (gx - c0f)
+    wy0 = 1.0 - (gy - r0f)
+    wx1 = 1.0 - wx0
+    wy1 = 1.0 - wy0
+    c0 = c0f.to(torch.int64) - PAD_LO_W
+    r0 = r0f.to(torch.int64) - PAD_LO_H
+    flat = grid.reshape(c, h * w)
+
+    def texel(r, cc):
+        ok = (r >= 0) & (r < h) & (cc >= 0) & (cc < w)
+        v = flat[:, torch.clamp(r, 0, h - 1) * w + torch.clamp(cc, 0, w - 1)]
+        return torch.where(ok, v, 0.0)
+
+    top = texel(r0, c0) * wx0 + texel(r0, c0 + 1) * wx1
+    bot = texel(r0 + 1, c0) * wx0 + texel(r0 + 1, c0 + 1) * wx1
+    return top * wy0 + bot * wy1

@@ -64,7 +64,8 @@ def default_state() -> dict[str, Any]:
 _STATIC_KEYS = ("rootNum", "autoClearView", "autoFade")
 
 
-def params_from_state(state: dict[str, Any], device="cpu") -> dict[str, Any]:
+def params_from_state(state: dict[str, Any],
+                      device="cuda") -> dict[str, Any]:
     """Every non-structural field of a state dict as an f32 tensor on
     `device` (scalars 0-d, colours `f32[4]`)."""
     return {k: torch.as_tensor(v, dtype=torch.float32, device=device)
@@ -103,7 +104,7 @@ class SimState:
 
 def make_state(root_num: int = 512, view_res=(720, 1280), num_view_buffers=1,
                color_map_res=(1, 1), flow_res=None, *,
-               device="cpu") -> SimState:
+               device="cuda") -> SimState:
     """Allocate a fresh SimState on `device`: all particles inert (ref
     `src/spawn/init/cpu.js:1-8`), grids zero. `view_res` is (H, W);
     `flow_res` defaults to `view_res` (ref `src/index.js:405`)."""

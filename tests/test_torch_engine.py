@@ -1,11 +1,7 @@
 """The slice as a whole: the port's resident flow-feedback frame against the
-JAX engine's (its Pallas kernels in interpret mode), from the same state.
-
-Particles are compared by identity (`sim.idx` inverted on each side: a
-one-ulp move may legitimately move a row in the sort), grids with the
-reference's own cross-path tolerance (tests/test_fused_draw.py: the splat
-sums bf16 products on the TPU side and f32 on the port's, which moves a
-deposit by a texel fraction).
+JAX engine's (its Pallas kernels in interpret mode), from the same state,
+with a 1x1 and a textured colour map; the non-resident force gather; and
+the branches still to port. The comparison is `torch_parity.compare`.
 """
 
 import dataclasses
@@ -14,23 +10,19 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tendrils_tpu import engine as jengine
 from tendrils_tpu.ops import spawn as jspawn
 from tendrils_tpu_torch import convert, engine as tengine
 from tendrils_tpu_torch.ops import cuda_lib
+from torch_parity import compare as _compare, port_engine, sim_arrays
 
 pytestmark = pytest.mark.kernel  # runs the JAX Pallas kernels (pytest.ini)
 
 CFG = dict(root_num=16, view_res=(32, 128), flow_samples=2, flow_rows=1,
            view_samples=2, splat_backend="pallas", gather_backend="pallas")
 FRAMES = 3
-
-
-def _arrays(sim):
-    return {f.name: (None if getattr(sim, f.name) is None
-                     else np.array(getattr(sim, f.name)))
-            for f in dataclasses.fields(sim)}
 
 
 @pytest.fixture(scope="module")
@@ -41,47 +33,16 @@ def jax_run():
     eng.setup()
     eng.spawn_shader(lambda p, e: jspawn.ball(p, e._frag_xy, 0.6, 0.01))
     sim0 = jax.tree_util.tree_map(jnp.array, eng.sim)
-    snaps = [(_arrays(eng.sim), eng.timer.time)]
+    snaps = [(sim_arrays(eng.sim), eng.timer.time)]
     for _ in range(FRAMES):
         eng.frame()
-        snaps.append((_arrays(eng.sim), eng.timer.time))
+        snaps.append((sim_arrays(eng.sim), eng.timer.time))
     return eng, sim0, snaps
 
 
 def _port(eng, snap):
     """A port facade on the CPU holding the JAX state `snap`."""
-    arrays, time = snap
-    t = tengine.Tendrils(convert.engine_config(eng.config), device="cpu")
-    t.setup()
-    t.sim = convert.sim_from_numpy(arrays)
-    t.timer.time = time
-    return t
-
-
-def _smooth(img):
-    k = np.ones(3) / 3
-    img = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), -1, img)
-    return np.apply_along_axis(lambda v: np.convolve(v, k, "same"), -2, img)
-
-
-def _compare(tsim, want):
-    def by_id(rows, idx):
-        return rows[:, np.argsort(idx)]
-
-    got = convert.sim_to_numpy(tsim)
-    np.testing.assert_array_equal(np.sort(got["idx"]),
-                                  np.arange(got["idx"].size))
-    for name in ("particles", "previous", "force"):
-        np.testing.assert_allclose(by_id(got[name], got["idx"]),
-                                   by_id(want[name], want["idx"]),
-                                   atol=1e-4, err_msg=name)
-    for name in ("flow", "view"):
-        np.testing.assert_allclose(_smooth(got[name]), _smooth(want[name]),
-                                   rtol=5e-2, atol=2e-2, err_msg=name)
-        np.testing.assert_allclose(got[name].sum(), want[name].sum(),
-                                   rtol=1e-3, err_msg=name)
-    assert (got["particles"][0] > -9e5).any()
-    assert (got["flow"][3] > 1e-3).any()
+    return port_engine(eng.config, *snap)
 
 
 def test_one_frame_from_converted_state(jax_run):
@@ -124,7 +85,7 @@ def test_run_headless_from_spawn(jax_run):
     t = _port(eng, snaps[0])
     tsim = tengine.run_headless(t.sim, t.params(), t.config, t._view_size,
                                 t0, dt, FRAMES, targets_live=False)
-    _compare(tsim, _arrays(jsim))
+    _compare(tsim, sim_arrays(jsim))
 
 
 def test_unported_branches_raise():
@@ -135,35 +96,45 @@ def test_unported_branches_raise():
     eng.state["flowWeight"] = 0.0
     with pytest.raises(NotImplementedError, match="flow_off"):
         eng.frame()
+    with pytest.raises(NotImplementedError, match="flow_off"):
+        eng.step_draw_io()
+    with pytest.raises(NotImplementedError, match="flow_off.*item 7"):
+        tengine.run_headless(eng.sim, eng.params(), cfg, eng._view_size,
+                             0.0, 16.0, 1, targets_live=False,
+                             flow_off=True)
     eng.state["flowWeight"] = 1.0
-    eng.state["lineWidth"] = 9.0
-    with pytest.raises(NotImplementedError, match="KMAX_WIDTH"):
-        eng.frame()
-    eng.timer.paused = True
-    with pytest.raises(NotImplementedError, match="paused draw"):
-        eng.frame()
-    classic = tengine.Tendrils(dataclasses.replace(cfg, resident_stream=False),
+    # Live targets riding the resident sort, the sharded draw.
+    with pytest.raises(NotImplementedError, match="live targets.*item 7"):
+        tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
+                         want_aux=True, resident=True, stepped=True,
+                         fast_resolve=True, read_time=1.0, want_force=True)
+    with pytest.raises(NotImplementedError, match="sharded.*item 12"):
+        tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
+                         axis_name="p")
+    # The merge reorder and the generic draw.
+    merge = tengine.Tendrils(dataclasses.replace(cfg, merge_reorder=True),
+                             device="cpu").setup()
+    with pytest.raises(NotImplementedError, match="merge reorder.*item 10"):
+        merge.frame()
+    generic = tengine.Tendrils(dataclasses.replace(cfg, fused_draw=False),
                                device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="non-resident"):
-        classic.frame()
-    with pytest.raises(NotImplementedError, match="non-resident"):
-        classic.step_draw_io()
-    # The interactive frame's unported stages, and K7.
+    with pytest.raises(NotImplementedError, match="generic.*item 4"):
+        generic.frame()
+    # Gather modes 2 and 3 (row ids beyond the stream's row count).
+    from tendrils_tpu_torch.ops import draw_cuda
+    n = cfg.n
+    with pytest.raises(NotImplementedError, match="gather modes 2 and 3"):
+        draw_cuda.fused_draw_accumulate(
+            cfg.view_res, torch.zeros((n, 2)), torch.zeros((n, 2)),
+            torch.zeros((2, n)), torch.zeros((2, n)), torch.zeros((4, n)),
+            torch.ones(n), 0.01, 0.0, idx=torch.arange(n, dtype=torch.int32),
+            idx_bound=2 * n)
+    # The interactive frame's unported post stack.
     io = tengine.Tendrils(cfg, device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="colour maps.*item 7"):
-        io.step_draw_io(color_maps=[np.ones((4, 2, 2), np.float32)],
-                        color_alphas=[1.0])
     with pytest.raises(NotImplementedError, match="blur, bokeh.*item 9"):
         io.step_draw_io(blur=(3.0, 1.0))
     with pytest.raises(NotImplementedError, match="item 9"):
         io.step_draw_io(bokeh=(2.0, 0.5))
-    with pytest.raises(NotImplementedError, match="K7.*item 7"):
-        tengine.force_from_aux(io.sim.flow, (io.sim.idx, io.sim.idx),
-                               io.params(), 0.0, cfg)
-    with pytest.raises(NotImplementedError, match="want_eff"):
-        tengine.draw_sim(io.sim, io.params(), 0.0, cfg, io._view_size,
-                         want_aux=True, resident=True, targets_live=False,
-                         stepped=True, fast_resolve=True, want_eff=True)
     # The xla splat backend (e.g. from a converted JAX config).
     seg = (np.zeros((2, 2), np.float32), np.ones((2, 2), np.float32),
            np.full((2, 2), 0.01, np.float32))
@@ -172,5 +143,76 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="xla splat.*item 4"):
         xla.inject_flow_segments(*seg, 2.0)
     io.timer.paused = True
-    with pytest.raises(NotImplementedError, match="paused io frame"):
-        io.step_draw_io()
+    with pytest.raises(NotImplementedError, match="blur, bokeh"):
+        io.step_draw_io(blur=(3.0, 1.0))
+
+
+def test_resident_frame_with_textured_colour_map(jax_run):
+    """The resident frame with a textured colour map (`set_color_map`):
+    p0 re-derived (key_recon) but colours packed to rgba8 by K1 from the
+    per-particle lookup, read by K2; the force gathered with K4."""
+    eng, sim0, _ = jax_run
+    cmap = np.random.default_rng(11).uniform(0, 1, (4, 8, 8)).astype(
+        np.float32)
+    jeng = jengine.Tendrils(eng.config)
+    jeng.setup()
+    jeng.sim = jax.tree_util.tree_map(jnp.array, sim0)
+    t = _port(eng, (sim_arrays(sim0), jeng.timer.time))
+    jeng.set_color_map(cmap)
+    t.set_color_map(cmap)
+    assert t.config.color_map_res == jeng.config.color_map_res == (8, 8)
+    cuda_lib.reset_counts()
+    for _ in range(2):
+        jeng.frame()
+        t.frame()
+    calls = cuda_lib.plain_calls
+    assert calls["pack_rgba"] == calls["splat_rgba"] == 2
+    assert calls["gather_reconstruct"] == 2 and calls["pack"] == 0
+    _compare(t.sim, sim_arrays(jeng.sim))
+
+
+def test_force_from_aux_unsort_matches_jax():
+    """`force_from_aux(unsort=True)`: K7 at the sorted p1 words, the scatter
+    back to row order by the unique row ids, the q15 decode; within one
+    q15 step (2 speedLimit / HALF) of the JAX function's."""
+    from tendrils_tpu_torch.ops.draw_cuda import pos_scale_for
+    from tendrils_tpu_torch.ops.tile_geom import (HALF, PAD_LO_H, PAD_LO_W,
+                                                  TILE_H, TILE_W, pad_dims)
+    rng = np.random.default_rng(12)
+    cfg = tengine.EngineConfig(**dict(CFG, splat_backend="kernel",
+                                      gather_backend="kernel",
+                                      resident_stream=False))
+    h, w = cfg.view_res
+    n = cfg.n
+    sl = np.float32(0.01)
+    flow = np.stack([rng.uniform(-1.2, 1.2, (h, w)) * sl,
+                     rng.uniform(-1.2, 1.2, (h, w)) * sl,
+                     rng.uniform(0.0, 100.0, (h, w)),
+                     rng.uniform(0.0, 1.0, (h, w))]).astype(np.float32)
+    pscale = pos_scale_for((h, w))
+    xq = np.rint(rng.uniform(PAD_LO_W - 2, PAD_LO_W + w + 2, n) * pscale)
+    yq = np.rint(rng.uniform(PAD_LO_H - 2, PAD_LO_H + h + 2, n) * pscale)
+    p1 = (yq.astype(np.int32) * (HALF + 1) + xq.astype(np.int32))
+    xs = np.clip(xq / pscale, PAD_LO_W + 0.5, PAD_LO_W + w - 0.5)
+    ys = np.clip(yq / pscale, PAD_LO_H + 0.5, PAD_LO_H + h - 0.5)
+    tiles_x = pad_dims(h, w)[1] // TILE_W
+    keys = ((np.floor(ys - 0.5).astype(np.int32) // TILE_H) * tiles_x
+            + np.floor(xs - 0.5).astype(np.int32) // TILE_W)
+    order = np.argsort(keys, kind="stable")
+    ids = rng.permutation(n).astype(np.int32)[order]
+    p1, keys = p1[order], keys[order]
+    params = {"speedLimit": sl, "flowDecay": np.float32(0.005)}
+    jforce = jengine.force_from_aux(
+        jnp.asarray(flow), tuple(jnp.asarray(a) for a in (ids, keys, p1)),
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.float32(90.0),
+        jengine.EngineConfig(**dict(CFG, resident_stream=False)))
+    cuda_lib.reset_counts()
+    tforce = tengine.force_from_aux(
+        torch.as_tensor(flow), (torch.as_tensor(ids), torch.as_tensor(p1)),
+        convert.params_from_numpy(params, device="cpu"), torch.tensor(90.0),
+        cfg)
+    assert cuda_lib.plain_calls["gather_keyed_q15"] == 1
+    assert tforce.shape == (2, n)
+    np.testing.assert_allclose(tforce.numpy(), np.asarray(jforce),
+                               rtol=0, atol=2 * sl / HALF * 1.001)
+    assert np.abs(tforce.numpy()).max() == pytest.approx(sl)

@@ -8,6 +8,8 @@ Particles are compared by identity and grids with the reference's own
 cross-path tolerance, as in tests/test_torch_engine.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,10 +18,11 @@ import torch
 
 from tendrils_tpu import engine as jengine, media as jmedia
 from tendrils_tpu.ops import optical_flow as jof, spawn as jspawn
-from tendrils_tpu_torch import convert, engine as tengine, flow_line
+from tendrils_tpu_torch import engine as tengine, flow_line
 from tendrils_tpu_torch import media as tmedia
 from tendrils_tpu_torch.ops import coords, cuda_lib
 from tendrils_tpu_torch.ops import optical_flow as tof
+from torch_parity import compare, port_engine, sim_arrays
 
 pytestmark = pytest.mark.kernel  # runs the JAX Pallas kernels (pytest.ini)
 
@@ -28,11 +31,6 @@ CFG = dict(root_num=16, view_res=(32, 128), flow_samples=2, flow_rows=1,
 CAM = (24, 64)  # camera frames (H, W), upsampled to the flow grid
 FRAMES = 3
 OF_U = {"offset": 0.05, "speed": 0.08}
-
-
-def _arrays(sim):
-    return {k: (None if v is None else np.array(v))
-            for k, v in vars(sim).items()}
 
 
 @pytest.fixture(scope="module")
@@ -66,56 +64,27 @@ def _inputs():
     return out
 
 
-def _jax_engine(start):
+def _jax_engine(start, **cfg_kw):
     cfg, sim0, t0 = start
-    eng = jengine.Tendrils(cfg)
+    eng = jengine.Tendrils(dataclasses.replace(cfg, **cfg_kw))
     eng.setup()
     eng.sim = jax.tree_util.tree_map(jnp.array, sim0)
     eng.timer.time = t0
     return eng
 
 
-def _port_engine(start):
+def _port_engine(start, **cfg_kw):
     cfg, sim0, t0 = start
-    t = tengine.Tendrils(convert.engine_config(cfg), device="cpu")
-    t.setup()
-    t.sim = convert.sim_from_numpy(_arrays(sim0))
-    t.timer.time = t0
-    return t
-
-
-def _smooth(img):
-    k = np.ones(3) / 3
-    img = np.apply_along_axis(lambda v: np.convolve(v, k, "same"), -1, img)
-    return np.apply_along_axis(lambda v: np.convolve(v, k, "same"), -2, img)
+    return port_engine(cfg, sim_arrays(sim0), t0, **cfg_kw)
 
 
 def _compare(tsim, want):
-    def by_id(rows, idx):
-        return rows[:, np.argsort(idx)]
-
-    got = convert.sim_to_numpy(tsim)
-    np.testing.assert_array_equal(np.sort(got["idx"]),
-                                  np.arange(got["idx"].size))
-    for name in ("particles", "previous"):
-        np.testing.assert_allclose(by_id(got[name], got["idx"]),
-                                   by_id(want[name], want["idx"]),
-                                   atol=1e-4, err_msg=name)
     # The camera's payload velocities reach ~500x speedLimit (the
     # reference's unclamped t² falloff), and the next draw blends them by a
     # transmittance the TPU sums from bf16 matmul operands
     # (draw_pallas.py:464,473): ~5e-4 of the flow, hence of the force
     # gathered from it.
-    np.testing.assert_allclose(by_id(got["force"], got["idx"]),
-                               by_id(want["force"], want["idx"]),
-                               rtol=2e-3, atol=1e-4, err_msg="force")
-    for name in ("flow", "view"):
-        np.testing.assert_allclose(_smooth(got[name]), _smooth(want[name]),
-                                   rtol=5e-2, atol=2e-2, err_msg=name)
-        np.testing.assert_allclose(got[name].sum(), want[name].sum(),
-                                   rtol=1e-3, err_msg=name)
-    assert (got["particles"][0] > -9e5).any()
-    assert (got["flow"][3] > 1e-3).any()
+    compare(tsim, want, force_rtol=2e-3)
 
 
 @pytest.mark.parametrize("seg_on,of_on", [(True, True), (False, True),
@@ -141,7 +110,7 @@ def test_io_frames_match_jax(start, seg_on, of_on):
                 of_uniforms=OF_U) is None
             ring.step()
     assert teng.timer.time == jeng.timer.time
-    _compare(teng.sim, _arrays(jeng.sim))
+    _compare(teng.sim, sim_arrays(jeng.sim))
     # Which force path ran: with flow edits the draw reassembles the state
     # alone (K6) and the force is gathered from the final flow (K8).
     calls = cuda_lib.plain_calls
@@ -175,7 +144,7 @@ def test_facade_inject_composite_frame(start):
         torch.tensor(teng.timer.time), offset=0.05, lambda_=0.001,
         speed=0.08, speed_limit=teng.params()["speedLimit"]))
     teng.frame()
-    _compare(teng.sim, _arrays(jeng.sim))
+    _compare(teng.sim, sim_arrays(jeng.sim))
     calls = cuda_lib.plain_calls
     assert calls["splat_points"] == calls["bilinear_gather"] == 1
     assert calls["gather_reconstruct"] == 1

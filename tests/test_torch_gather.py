@@ -168,3 +168,85 @@ def test_gather_reconstruct_is_keyed_gather_plus_reconstruct():
              *reconstruct_resident(t(npx), t(npy), t(vl), sl))
     for a, b in zip(fused, parts):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("grid_hw", GRIDS)
+def test_bilinear_gather_keyed_q15_matches_jax(grid_hw):
+    """K7 (plain version on the CPU) against the JAX q15 keyed gather: the
+    TPU kernel sums one-hot matmul rows where the port lerps, so a field
+    may round to the other side of a q15 step (the JAX test's own bound,
+    tests/test_gather_pallas.py:113-116)."""
+    rng = np.random.default_rng(5)
+    h, w = grid_hw
+    sl = np.float32(0.02)
+    grid = rng.uniform(-1.5, 1.5, (2, h, w)).astype(np.float32) * sl
+    p1, keys, inv_p = _p1_case(rng, grid_hw, 3000)
+    inv_sl = np.float32(1.0) / sl
+    jout = np.asarray(jgather.bilinear_gather_keyed_q15(
+        jnp.asarray(grid), jnp.asarray(p1), jnp.asarray(keys),
+        jnp.float32(inv_sl), inv_p=inv_p, interpret=True))[:p1.size]
+    cuda_lib.reset_counts()
+    tout = tgather.bilinear_gather_keyed_q15(
+        torch.as_tensor(grid), torch.as_tensor(p1), torch.tensor(inv_sl),
+        inv_p=inv_p).numpy()
+    assert cuda_lib.plain_calls["gather_keyed_q15"] == 1
+    for shift in (0, 15):
+        d = np.abs(((tout >> shift) & HALF).astype(np.int64)
+                   - ((jout >> shift) & HALF))
+        assert d.max() <= 1
+    # Clamped at +-speedLimit, so some fields saturate at 0 and HALF.
+    assert ((tout & HALF) == HALF).any() and ((tout & HALF) == 0).any()
+    assert (tout >= 0).all()
+
+
+def test_bilinear_gather_keyed_matches_jax():
+    """K12 (plain version on the CPU) against the JAX keyed gather on a
+    fused draw's sorted streams (its gather keys and packed p1, unpacked
+    and clamped to padded float coords as the draw's aux contract has it),
+    at the JAX test's own bound (tests/test_gather_pallas.py:69-71)."""
+    from tendrils_tpu.ops import draw_pallas as jdraw
+    rng = np.random.default_rng(6)
+    h, w = 64, 384
+    n = 1024
+    vs = np.float32(max(h, w)) / np.asarray([w, h], np.float32)
+    pos = (rng.uniform(-1.02, 1.02, (2, n)) / vs[:, None]).astype(np.float32)
+    vel = (rng.uniform(-0.7, 0.7, (2, n)) * 0.03).astype(np.float32)
+    p1 = np.stack([(pos[0] * vs[0] * np.float32(0.5) + np.float32(0.5)) * w,
+                   (pos[1] * vs[1] * np.float32(0.5) + np.float32(0.5)) * h],
+                  axis=-1).astype(np.float32)
+    p0 = (p1 - vel.T * vs * np.float32(0.5)
+          * np.asarray([w, h], np.float32)).astype(np.float32)
+    j = jnp.asarray
+    _, _, aux = jdraw.fused_draw_accumulate(
+        (h, w), j(p0), j(p1), j(vel), j(pos), j(np.ones((4, n), np.float32)),
+        j(np.ones(n, np.float32)), jnp.float32(0.03), jnp.float32(100.0),
+        idx=jnp.arange(n, dtype=jnp.int32), interpret=True, samples=2)
+    gkey, p1_s = (np.asarray(a)[:n] for a in aux[1:])
+    inv_p = 1.0 / pos_scale_for((h, w))
+    xs = np.clip((p1_s & HALF).astype(np.float32) * np.float32(inv_p),
+                 PAD_LO_W + 0.5, PAD_LO_W + w - 0.5).astype(np.float32)
+    ys = np.clip((p1_s >> 15).astype(np.float32) * np.float32(inv_p),
+                 PAD_LO_H + 0.5, PAD_LO_H + h - 0.5).astype(np.float32)
+    grid = rng.uniform(-2, 2, (2, h, w)).astype(np.float32)
+    jout = jgather.bilinear_gather_keyed(j(grid), j(xs), j(ys), j(gkey),
+                                         interpret=True)
+    cuda_lib.reset_counts()
+    tout = tgather.bilinear_gather_keyed(*(torch.as_tensor(a)
+                                           for a in (grid, xs, ys)))
+    assert cuda_lib.plain_calls["gather_keyed"] == 1
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout)[:, :n],
+                               atol=5e-4)
+    # On the clamped domain it is CLAMP_TO_EDGE sampling.
+    np.testing.assert_allclose(
+        tout.numpy(), np.asarray(jsample.bilinear_sample(
+            j(grid), j(xs - PAD_LO_W), j(ys - PAD_LO_H))), atol=5e-4)
+
+
+def test_bilinear_gather_keyed_zero_outside_content():
+    """K12's corners outside the content weigh 0 (the TPU's zero padding):
+    a point half a texel past the last column reads half the edge texel."""
+    grid = torch.ones((1, 16, 128))
+    xs = torch.tensor([PAD_LO_W + 128.0, PAD_LO_W + 64.5])
+    ys = torch.tensor([PAD_LO_H + 8.5, PAD_LO_H + 16.0])
+    np.testing.assert_allclose(
+        tgather.bilinear_gather_keyed(grid, xs, ys).numpy(), [[0.5, 0.5]])

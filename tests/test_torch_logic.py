@@ -77,7 +77,8 @@ def test_step_particles_matches():
     jp = jengine.default_params()
     jp["target"] = jnp.float32(0.02)
     jp["noiseWeight"] = jnp.float32(0.05)  # make the noise term count
-    tp = convert.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = convert.params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                                device="cpu")
     time, dt = np.float32(1234.5), np.float32(1000.0 / 60.0)
 
     uv, i01, _ = jstate.particle_coords_from_idx(jnp.asarray(idx), root)
@@ -112,7 +113,8 @@ def test_step_particles_flow_sampling_matches():
                      rng.uniform(0, 1, (h, w))]).astype(np.float32)
     vs = np.asarray([40 / 24, 1.0], np.float32)
     jp = jengine.default_params()
-    tp = convert.params_from_numpy({k: np.asarray(v) for k, v in jp.items()})
+    tp = convert.params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                                device="cpu")
     uv = rng.uniform(0, 1, (2, n)).astype(np.float32)
     i01 = rng.uniform(0, 1, n).astype(np.float32)
     time, dt = np.float32(1000.0), np.float32(1000.0 / 60.0)

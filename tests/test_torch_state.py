@@ -2,6 +2,7 @@
 `convert` round trip."""
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +16,7 @@ from tendrils_tpu_torch import convert, engine as tengine, state as tstate
 def test_default_state_and_params_match():
     assert tstate.default_state() == jstate.default_state()
     jp = jstate.params_from_state(jstate.default_state())
-    tp = tstate.params_from_state(tstate.default_state())
+    tp = tstate.params_from_state(tstate.default_state(), device="cpu")
     assert jp.keys() == tp.keys()
     for k in jp:
         np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
@@ -28,7 +29,7 @@ def test_default_state_and_params_match():
 ])
 def test_make_state_matches(kw):
     j = jstate.make_state(**kw)
-    t = tstate.make_state(**kw)
+    t = tstate.make_state(**kw, device="cpu")
     for f in ("particles", "previous", "targets", "flow", "view", "color_map",
               "idx"):
         a, b = getattr(t, f).numpy(), np.asarray(getattr(j, f))
@@ -62,12 +63,24 @@ def test_convert_round_trip():
     arrays["particles"] = rng.normal(size=(4, 64)).astype(np.float32)
     arrays["idx"] = rng.permutation(64).astype(np.int32)
     arrays["force"] = rng.normal(size=(2, 64)).astype(np.float32)
-    sim = convert.sim_from_numpy(arrays)
+    # A textured colour map of any shape crosses unchanged.
+    arrays["color_map"] = rng.uniform(size=(4, 3, 7)).astype(np.float32)
+    sim = convert.sim_from_numpy(arrays, device="cpu")
     assert sim.idx.dtype == torch.int32
     back = convert.sim_to_numpy(sim)
     for k, v in back.items():
         np.testing.assert_array_equal(v, arrays[k], err_msg=k)
     params = {k: np.asarray(v) for k, v in jengine.default_params().items()}
-    tparams = convert.params_from_numpy(params)
+    tparams = convert.params_from_numpy(params, device="cpu")
     for k, v in convert.params_to_numpy(tparams).items():
         np.testing.assert_array_equal(v, params[k])
+
+
+@pytest.mark.parametrize("fn", [tstate.make_state, tstate.params_from_state,
+                                convert.sim_from_numpy,
+                                convert.params_from_numpy],
+                         ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(fn):
+    """The public constructors put their tensors on the card unless the
+    caller asks for the CPU (read from the signatures; nothing allocated)."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
