@@ -45,10 +45,26 @@ Phases (each prints a line; any failure exits non-zero before the result):
      and 20 `Tendrils.frame()` calls (the paused draw, the force by K7),
      each timed; launch counters, state, and small runs on the card
      against the CPU.
+  9. the merge reorder (`EngineConfig(merge_reorder=True)`) at config 2:
+     two facade frames and 60 headless steps with the launch and event
+     counts and each frame's churn (every frame must merge exactly when
+     its churn fits the n/8 capacity, at least one must, the seeded first
+     must fall back), the carry's invariants, then 3 timed runs of 60 on
+     and off from one state in turns, and on against off after 5 steps
+     by identity; at config 3 (`models.build("4m-respawn-stress")`),
+     `bench.py:_bench_3`'s cadence, a ball respawn and 10 headless steps:
+     a warm segment and 3 timed ones, on and off, each respawn's first
+     frame falling back;
+ 10. at config 3 one classic frame and one paused `frame()` (gather mode
+     2, K7); config 5 (`models.build("16m-live-show")`) headless, on and
+     off: 2 warm steps and 3 timed runs of 10.
 Phase 3 also holds the K1/K2 variants with the p0 and rgba8 streams, K7
-and K12 (with `F.grid_sample` as its library yardstick) against their
-plain versions. The last three lines are the card, the per-kernel JSON and
-the result JSON.
+and K12 (with `F.grid_sample` as its library yardstick), K10 and K11 on
+the merge inputs recorded from real config-3 and config-2 frames (with
+the boolean-mask selection as K10's yardstick and the flat `torch.sort`
+printed beside the whole merge) and K1 in gather modes 3 and 2 against
+their plain versions. The last three lines are the card, the per-kernel
+JSON and the result JSON.
 """
 
 import dataclasses
@@ -98,6 +114,15 @@ KERNELS = {
                          "tendrils_tpu/ops/gather_pallas.py:364"),
     "gather_keyed": ("tendrils_tpu_torch/csrc/gather.cu",
                      "tendrils_tpu/ops/gather_pallas.py:309"),
+    # The merge reorder and K1's gather modes 3 and 2.
+    "reorder_compact": ("tendrils_tpu_torch/csrc/reorder.cu",
+                        "tendrils_tpu/ops/reorder_pallas.py:246"),
+    "reorder_apply": ("tendrils_tpu_torch/csrc/reorder.cu",
+                      "tendrils_tpu/ops/reorder_pallas.py:295"),
+    "pack_g3": ("tendrils_tpu_torch/csrc/pack.cu",
+                "tendrils_tpu/ops/draw_pallas.py:758"),
+    "pack_p0_rgba_g2": ("tendrils_tpu_torch/csrc/pack.cu",
+                        "tendrils_tpu/ops/draw_pallas.py:758"),
 }
 CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
                 "bilinear_gather")
@@ -111,6 +136,15 @@ PATH_C_RUNNING = {"pack_rgba": 1, "splat_rgba": 1, "resolve": 1,
                   "splat_points": 1}
 PATH_C_PAUSED = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "splat_points": 1}
 PATH_B = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "gather_keyed_q15": 1}
+# The resident frame with the merge on (K1 "pack" is "pack_g3" in gather
+# mode 3), with it off at configs 3 and 5, and the gather-mode-2 frames.
+MERGE_C2 = {"pack": 1, "splat": 1, "resolve": 1, "gather_reconstruct": 1,
+            "reorder_compact": 1, "reorder_apply": 1}
+CONFIG3_OFF = {"pack": 1, "splat": 1, "resolve": 1, "gather_reconstruct": 1}
+CLASSIC_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": 1, "resolve": 1,
+              "gather_keyed_q15": 1}
+PAUSED_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": 1, "gather_keyed_q15": 1}
+SEG = 10  # headless steps of a config-3 segment and a config-5 timed run
 
 
 def fail(msg):
@@ -826,7 +860,8 @@ def check_launches(label, frames, per_frame, launches, plain):
     for k in ("pack", "splat", "pack_p0_rgba", "splat_p0_rgba", "pack_rgba",
               "splat_rgba", "resolve", "gather_keyed_q15",
               "gather_reconstruct", "reconstruct_resident", "gather_keyed_p1",
-              "splat_points"):
+              "splat_points", "pack_g3", "pack_p0_rgba_g2", "reorder_compact",
+              "reorder_apply"):
         if launches.get(k, 0) != frames * per_frame.get(k, 0):
             fail(f"{label}: {k} launched {launches.get(k, 0)} times, want "
                  f"{frames * per_frame.get(k, 0)} (launches {launches})")
@@ -975,6 +1010,464 @@ def run_paths_b_c():
     return total
 
 
+def capture_merge_inputs(eng, frames=3):
+    """The merge reorder's inputs on a real resident frame: the engine
+    (merge on) runs `frames` frames, then one more whose
+    `reorder_cuda.merge_reorder` call is recorded (the script wraps it in
+    place for that frame and restores it; the package never does)."""
+    from tendrils_tpu_torch.ops import reorder_cuda
+    eng.config = dataclasses.replace(eng.config, merge_reorder=True)
+    eng.reseed_derived()
+    for _ in range(frames):
+        eng.frame()
+    got = {}
+    orig = reorder_cuda.merge_reorder
+
+    def record(key, prev_key, prev_hist, **kw):
+        got.update(key=key.clone(), prev_key=prev_key.clone(),
+                   prev_hist=prev_hist.clone(), **kw)
+        return orig(key, prev_key, prev_hist, **kw)
+
+    reorder_cuda.merge_reorder = record
+    try:
+        eng.frame()
+    finally:
+        reorder_cuda.merge_reorder = orig
+    torch.cuda.synchronize()
+    return got
+
+
+def check_reorder_at(label, inp, out=None):
+    """K10 and K11 bit for bit against their plain versions on one frame's
+    merge inputs, and on the all-churn case of the engine's MAXKEY seed
+    (`ok` false on both); timed with the merge as a whole, the flat sort
+    it replaces and (K10) a boolean-mask selection. With `out`, records
+    the kernels' rows there. Returns the churned share."""
+    from tendrils_tpu_torch.ops import reorder_cuda as ro
+    key, prev, hist = inp["key"], inp["prev_key"], inp["prev_hist"]
+    kw = dict(n_tiles=inp["n_tiles"], idx_bits=inp["idx_bits"])
+    n, cap, nb, t = key.numel(), ro.capacity(key.numel()), \
+        key.numel() // ro.SB, kw["n_tiles"]
+    dev = key.device
+
+    def same(name, got, want):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not torch.equal(a, b):
+                fail(f"{name} ({label}): output {i}: "
+                     f"{(a != b).sum().item()} values differ")
+
+    k_total, base_b = ro.churn_blocks(key, prev)
+    k = int(k_total)
+    same("reorder_compact", ro.compact(key, prev, base_b),
+         ro.compact_plain(key, prev, base_b))
+    args, _ = ro.merge_plan(key, prev, hist, **kw)
+    k11 = ro.merge_apply(*args, idx_bits=kw["idx_bits"])
+    same("reorder_apply", k11, ro.merge_apply_plain(
+        *args, idx_bits=kw["idx_bits"]))
+    ok = ro.merge_reorder(key, prev, hist, **kw)[0]
+    if not bool(ok):
+        fail(f"merge_reorder ({label}): ok false on a steady frame "
+             f"({k} of {n} rows churned)")
+    order = torch.sort(key)[0]
+    if not torch.equal(k11[0] >> kw["idx_bits"], order >> kw["idx_bits"]):
+        fail(f"merge_reorder ({label}): not sorted by tile")
+
+    # The engine's seed: every row churned, over the capacity.
+    seed = torch.full_like(prev, ro.MAXKEY)
+    zeros = torch.zeros_like(hist)
+    s_base = ro.churn_blocks(key, seed)[1]
+    same("reorder_compact (all churned)", ro.compact(key, seed, s_base),
+         ro.compact_plain(key, seed, s_base))
+    s_args, _ = ro.merge_plan(key, seed, zeros, **kw)
+    s_counts = [f(*s_args, idx_bits=kw["idx_bits"])[2]
+                for f in (ro.merge_apply, ro.merge_apply_plain)]
+    same("reorder_apply counts (all churned)", s_counts[:1], s_counts[1:])
+    if bool(ro.merge_reorder(key, seed, zeros, **kw)[0]):
+        fail(f"merge_reorder ({label}): ok true with every row churned")
+
+    ar = torch.arange(n, dtype=torch.int32, device=dev)
+
+    def mask_select():
+        m = key != prev
+        return key[m], prev[m], ar[m]
+
+    ms = dict(
+        compact=median_ms(lambda: ro.compact(key, prev, base_b), 50),
+        compact_plain=median_ms(lambda: ro.compact_plain(key, prev, base_b),
+                                10),
+        mask_select=median_ms(mask_select, 50),
+        apply=median_ms(lambda: ro.merge_apply(
+            *args, idx_bits=kw["idx_bits"]), 50),
+        apply_plain=median_ms(lambda: ro.merge_apply_plain(
+            *args, idx_bits=kw["idx_bits"]), 10),
+        merge=median_ms(lambda: ro.merge_reorder(key, prev, hist, **kw), 20),
+        sort=median_ms(lambda: torch.sort(key), 20))
+    print(f"  {label}: {k} of {n} rows churned ({k / n:.2%}); "
+          f"reorder_compact {ms['compact']:.4f} ms (plain "
+          f"{ms['compact_plain']:.4f}, mask select {ms['mask_select']:.4f}),"
+          f" reorder_apply {ms['apply']:.4f} ms (plain "
+          f"{ms['apply_plain']:.4f}); bit-exact, the all-churn seed ok false "
+          f"on both")
+    print(f"  {label}: the whole merge_reorder (K10, censuses, C sort, K11) "
+          f"{ms['merge']:.4f} ms; the flat torch.sort of the same keys "
+          f"{ms['sort']:.4f} ms")
+    if out is not None:
+        b10 = bound(8 * n + 4 * nb + 12 * cap, 8 * n)
+        b11 = bound(16 * n + 8 * k + 8 * t + 8 * nb, 8 * n + 4 * k)
+        out["reorder_compact"] = dict(
+            max_abs_err=0.0, ms=ms["compact"], plain_ms=ms["compact_plain"],
+            bound_ms=b10[0], bound_by=b10[1], library_ms=ms["mask_select"])
+        out["reorder_apply"] = dict(
+            max_abs_err=0.0, ms=ms["apply"], plain_ms=ms["apply_plain"],
+            bound_ms=b11[0], bound_by=b11[1], library_ms=None)
+        print(f"  reorder_compact bound {b10[0]:.4f} ms by {b10[1]}, "
+              f"reorder_apply bound {b11[0]:.4f} ms by {b11[1]}")
+    return k / n
+
+
+def check_gather_mode_packs(out):
+    """K1 in gather mode 3 (the resident stream beyond 2^20 rows: key_recon,
+    `tile << 19 | id_lo`) and mode 2 (the non-resident draw: exact p0 and
+    rgba8, the tile alone) at config-3 shapes, bit for bit."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    n, hw = 1 << 22, (1080, 1920)
+    s = sorted_streams(n, hw, 0.01, 5)
+    kw = dict(grid_hw=hw, pscale=s["pscale"], gather=3)
+    rows = [("pack_g3", s["pack_args"], kw, 24, 12)]
+    c = classic_streams(n, hw, 0.01, 6)
+    rows.append(("pack_p0_rgba_g2", c["pack_args"],
+                 dict(c["pack_kw"], gather=2), 52, 20))
+    for name, args, kw, in_b, out_b in rows:
+        got = draw_cuda.pack(*args, **kw)
+        want = draw_cuda.pack_plain(*args, **kw)
+        for field, a, b in zip(("keym", "p1", "vl", "p0", "rgba"), got,
+                               want):
+            if (a is None) != (b is None) or (a is not None
+                                              and not torch.equal(a, b)):
+                fail(f"{name} {field}: words differ")
+        b, by = bound((in_b + out_b) * n + 128, 60 * n)
+        out[name] = dict(
+            max_abs_err=0.0, bound_ms=b, bound_by=by, library_ms=None,
+            ms=median_ms(lambda: draw_cuda.pack(*args, **kw), 50),
+            plain_ms=median_ms(lambda: draw_cuda.pack_plain(*args, **kw),
+                               10))
+        r = out[name]
+        print(f"  {name}: bit-exact; {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f} ms, bound {b:.4f} ms by {by})")
+
+
+def check_merge_kernels():
+    """Phase 3's merge part: K10 and K11 on the merge inputs of real
+    resident frames at config 3 (recorded) and config 2 (printed), and the
+    K1 mode-2/3 variants."""
+    from tendrils_tpu_torch import models
+    out = {}
+    for name, label in (("4m-respawn-stress", "config 3, 4,194,304 rows, "
+                         "gather mode 3"),
+                        ("1m-flow", "config 2, 1,048,576 rows, gather "
+                         "mode 1")):
+        inp = capture_merge_inputs(models.build(name))
+        check_reorder_at(label, inp, out if name.startswith("4m") else None)
+        del inp
+    check_gather_mode_packs(out)
+    return out
+
+
+def record_merges(run):
+    """`run()` with each merge frame's churned rows and `ok` read back (the
+    script wraps `reorder_cuda.merge_reorder` in place for the run and
+    restores it; the package never does). Returns `(run's result, [(churned
+    rows, rows, ok), ...])`."""
+    from tendrils_tpu_torch.ops import reorder_cuda
+    log, orig = [], reorder_cuda.merge_reorder
+
+    def record(key, prev_key, prev_hist, **kw):
+        out = orig(key, prev_key, prev_hist, **kw)
+        log.append((int((key != prev_key).sum()), key.numel(), bool(out[0])))
+        return out
+
+    reorder_cuda.merge_reorder = record
+    try:
+        return run(), log
+    finally:
+        reorder_cuda.merge_reorder = orig
+
+
+def check_merge_log(label, log, need_merge):
+    """Every frame merged exactly when its churn fit the n // 8 capacity
+    (with a valid carry the per-block counts always hold), and with
+    `need_merge` at least one did; returns a summary."""
+    bad = [(k, n, ok) for k, n, ok in log if ok != (k <= n // 8)]
+    if bad:
+        fail(f"{label}: merge ok disagrees with the capacity guard on "
+             f"{len(bad)} frames (churned, rows, ok): {bad[:4]}")
+    merged = sum(ok for *_, ok in log)
+    if need_merge and not merged:
+        fail(f"{label}: no frame merged")
+    shares = sorted(k / n for k, n, _ in log[1:])
+    return (f"churn after the first frame min {shares[0]:.2%}, median "
+            f"{statistics.median(shares):.2%}, max {shares[-1]:.2%} "
+            f"(capacity 12.5%); {merged} of {len(log)} frames merged, each "
+            "exactly when its churn fit")
+
+
+def carry_ok(sim, cfg, label):
+    """The state (alive, finite), `idx` a permutation and, with the merge
+    on, the carry's invariants: `sort_key` tile-sorted with the rows' ids
+    in its low bits, `sort_hist` its exact census."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    alive, texels = check_state(sim, label)
+    n = cfg.n
+    if not torch.equal(torch.sort(sim.idx)[0],
+                       torch.arange(n, dtype=torch.int32, device="cuda")):
+        fail(f"{label}: idx is not a permutation")
+    if sim.sort_key is None:
+        return alive, texels
+    nt = draw_cuda.seg_tile_count(cfg.view_res)
+    bits = draw_cuda._idx_bits(draw_cuda.gather_mode(
+        n, nt, ids=True, resident=True, idx_bound=n))
+    tiles = sim.sort_key >> bits
+    if (tiles[1:] < tiles[:-1]).any():
+        fail(f"{label}: sort_key is not tile-sorted")
+    mask = (1 << bits) - 1
+    if not torch.equal(sim.sort_key & mask, sim.idx & mask):
+        fail(f"{label}: sort_key does not follow the rows")
+    hist = torch.zeros(nt, dtype=torch.int64, device="cuda").index_add_(
+        0, tiles.long(), torch.ones_like(tiles, dtype=torch.int64))
+    if not torch.equal(sim.sort_hist.long(), hist):
+        fail(f"{label}: sort_hist is not the census of sort_key")
+    return alive, texels
+
+
+def with_merge(eng, merge):
+    """`eng` with `merge_reorder` set; its carry seeded or dropped."""
+    eng.config = dataclasses.replace(eng.config, merge_reorder=merge)
+    eng.reseed_derived()
+    return eng
+
+
+def headless(eng, sim, steps, t_sim):
+    import tendrils_tpu_torch as tt
+    return tt.run_headless(sim, eng.params(), eng.config, eng._view_size,
+                           t_sim, DT, steps, targets_live=False)
+
+
+def run_merge_config2():
+    """Phase 9a: config 2 with the merge on: two facade frames and STEPS
+    headless steps with the launch and event counts and each frame's churn
+    (`record_merges`); then 3 timed runs of STEPS, merge on and off from
+    the same state in turns; then merge on against off after 5 frames from
+    one state, by identity."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import cuda_lib
+    eng = with_merge(models.build("1m-flow"), True)
+    cuda_lib.reset_counts()
+
+    def run():
+        eng.frame()
+        eng.frame()
+        eng.sim.force = None
+        return headless(eng, eng.sim, STEPS, eng.timer.time)
+
+    sim, log = record_merges(run)
+    torch.cuda.synchronize()
+    launches, events = dict(cuda_lib.launches), dict(cuda_lib.events)
+    frames = 2 + STEPS
+    check_launches("1m-flow merge", frames, dict(MERGE_C2, bilinear_gather=0),
+                   launches, dict(cuda_lib.plain_calls))
+    if launches.get("bilinear_gather") != 2 \
+            or launches.get("reorder_compact") != frames \
+            or launches.get("reorder_apply") != frames:
+        fail(f"1m-flow merge: launches {launches}")
+    merged, fell = events.get("reorder_merged", 0), \
+        events.get("reorder_fallback", 0)
+    if merged + fell != frames or fell < 1 or log[0][2] \
+            or len(log) != frames:
+        fail(f"1m-flow merge: {merged} merged, {fell} fallbacks in "
+             f"{frames} frames (the first must fall back)")
+    churn = check_merge_log("1m-flow merge", log, need_merge=True)
+    alive, texels = carry_ok(sim, eng.config, "1m-flow merge")
+
+    t_sim = eng.timer.time + STEPS * DT
+    times = {True: [], False: []}
+    for rep in range(3):
+        runs = {}
+        for merge in ((True, False) if rep % 2 == 0 else (False, True)):
+            start = dataclasses.replace(sim, force=None)
+            with_merge(eng, merge)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[merge] = headless(eng, start, STEPS, t_sim)
+            torch.cuda.synchronize()
+            times[merge].append((time.perf_counter() - t0) / STEPS)
+        sim = runs[True]
+        t_sim += STEPS * DT
+    carry_ok(sim, eng.config, "1m-flow merge timed")
+
+    # Merge on against off after 5 frames from one state, by identity.
+    ends = {}
+    for merge in (True, False):
+        start = dataclasses.replace(sim, force=None)
+        ends[merge] = headless(with_merge(eng, merge), start, 5, t_sim)
+    pa, pb = by_id(ends[True]), by_id(ends[False])
+    d = (pa - pb).abs()
+    share = (d > 5e-5).float().mean().item()
+    if d.max().item() > 1e-3 or share >= 0.01:
+        fail(f"1m-flow merge on vs off: max |d| {d.max().item():.3e}, "
+             f"{share:.3%} of values beyond 5e-5")
+    med = {m: statistics.median(v) for m, v in times.items()}
+    print(f"[9] 1m-flow merge on: 2 frames + {STEPS} headless steps, "
+          f"launches {launches}, no plain calls, {merged} merged, {fell} "
+          f"fallback; {churn}; {alive} alive, {texels} flow texels; carry "
+          f"valid. "
+          f"ms/frame merge on {med[True] * 1e3:.3f} (runs "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times[True])}), off "
+          f"{med[False] * 1e3:.3f} (runs "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times[False])}), median "
+          f"of 3 x {STEPS} in turns; on vs off after 5 steps by identity: "
+          f"max |d| {d.max().item():.3e}, {share:.4%} beyond 5e-5")
+    return launches
+
+
+def ball(eng):
+    from tendrils_tpu_torch.ops import spawn
+    eng.spawn_shader(lambda p, e: spawn.ball(p, e._frag_xy, 0.6, 0.01))
+
+
+def run_merge_config3():
+    """Phase 9b: config 3 (`bench.py:_bench_3`'s cadence: a ball respawn,
+    then 10 headless steps), merge on and off: one warm segment, then 3
+    timed segments; each respawn's first frame must fall back."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import cuda_lib
+    eng = models.build("4m-respawn-stress")
+    total, med = {}, {}
+    for merge in (True, False):
+        with_merge(eng, merge)
+        ball(eng)
+        eng.sim, log = record_merges(
+            lambda: headless(eng, eng.sim, SEG, eng.timer.time))
+        eng.timer.time += SEG * DT
+        warm = check_merge_log("4m-respawn-stress warm segment", log,
+                               need_merge=False) if merge else "merge off"
+        cuda_lib.reset_counts()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # The events count on the host as each frame reads its ok.
+            fell = cuda_lib.events.get("reorder_fallback", 0)
+            ball(eng)
+            eng.sim = headless(eng, eng.sim, 1, eng.timer.time)
+            if merge and cuda_lib.events.get("reorder_fallback", 0) \
+                    != fell + 1:
+                fail("4m-respawn-stress: a respawn's first frame did not "
+                     f"fall back (events {dict(cuda_lib.events)})")
+            eng.sim = headless(eng, eng.sim, SEG - 1, eng.timer.time + DT)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / SEG)
+            eng.timer.time += SEG * DT
+        launches, events = dict(cuda_lib.launches), dict(cuda_lib.events)
+        frames = 3 * SEG
+        label = f"4m-respawn-stress merge {'on' if merge else 'off'}"
+        per = dict(MERGE_C2 if merge else CONFIG3_OFF, bilinear_gather=0)
+        per["pack_g3"] = per.pop("pack")
+        check_launches(label, frames, per, launches,
+                       dict(cuda_lib.plain_calls))
+        if launches.get("bilinear_gather") != 3:
+            fail(f"{label}: launches {launches}")
+        if merge and sum(events.values()) != frames or not merge and events:
+            fail(f"{label}: events {events}")
+        alive, texels = carry_ok(eng.sim, eng.config, label)
+        med[merge] = statistics.median(times)
+        print(f"[9] {label}: 3 x (ball respawn + {SEG} headless steps) "
+              f"after a warm one ({warm}), launches {launches}, events "
+              f"{events}, no plain calls; {alive} alive, {texels} flow "
+              f"texels; "
+              f"{med[merge] * 1e3:.3f} ms/frame (segments "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+              f"{eng.config.n / med[merge]:.0f} particle-steps/s")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return eng, total
+
+
+def run_config5_and_mode2(eng3):
+    """Phase 10: config 5 headless, merge on and off (2 warm steps, 3 timed
+    runs of SEG steps each); then at config 3 one classic frame and one
+    paused `frame()` (gather mode 2, K7)."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import cuda_lib
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    eng3.config = dataclasses.replace(eng3.config, resident_stream=False)
+    eng3.reseed_derived()
+    cuda_lib.reset_counts()
+    eng3.frame()
+    torch.cuda.synchronize()
+    add(dict(cuda_lib.launches))
+    check_launches("4m-respawn-stress classic", 1, CLASSIC_G2,
+                   dict(cuda_lib.launches), dict(cuda_lib.plain_calls))
+    carry_ok(eng3.sim, eng3.config, "4m-respawn-stress classic")
+    if eng3.sim.force is None:
+        fail("4m-respawn-stress classic: no carried force")
+    eng3.timer.paused = True
+    cuda_lib.reset_counts()
+    eng3.frame()
+    torch.cuda.synchronize()
+    add(dict(cuda_lib.launches))
+    check_launches("4m-respawn-stress paused frame()", 1, PAUSED_G2,
+                   dict(cuda_lib.launches), dict(cuda_lib.plain_calls))
+    carry_ok(eng3.sim, eng3.config, "4m-respawn-stress paused frame()")
+    print("[10] 4m-respawn-stress, gather mode 2: one classic frame "
+          f"({CLASSIC_G2}) and one paused frame() ({PAUSED_G2}), no plain "
+          "calls, state valid")
+
+    eng = models.build("16m-live-show")
+    med = {}
+    for merge in (True, False):
+        with_merge(eng, merge)
+        eng.sim.force = None
+        cuda_lib.reset_counts()
+        sim = headless(eng, eng.sim, 2, eng.timer.time)
+        t_sim = eng.timer.time + 2 * DT
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim = headless(eng, sim, SEG, t_sim)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / SEG)
+            t_sim += SEG * DT
+        eng.sim, eng.timer.time = sim, t_sim
+        launches, events = dict(cuda_lib.launches), dict(cuda_lib.events)
+        frames = 2 + 3 * SEG
+        label = f"16m-live-show merge {'on' if merge else 'off'}"
+        per = dict(MERGE_C2 if merge else CONFIG3_OFF, bilinear_gather=0)
+        per["pack_g3"] = per.pop("pack")
+        check_launches(label, frames, per, launches,
+                       dict(cuda_lib.plain_calls))
+        if launches.get("bilinear_gather") != 1:
+            fail(f"{label}: launches {launches}")
+        if merge and (sum(events.values()) != frames
+                      or events.get("reorder_fallback", 0) < 1) \
+                or not merge and events:
+            fail(f"{label}: events {events}")
+        alive, texels = carry_ok(sim, eng.config, label)
+        med[merge] = statistics.median(times)
+        add(launches)
+        print(f"[10] {label}: {frames} headless steps, launches {launches}, "
+              f"events {events}, no plain calls; {alive} alive, {texels} "
+              f"flow texels; {med[merge] * 1e3:.3f} ms/frame (3 x {SEG}: "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), "
+              f"{eng.config.n / med[merge]:.0f} particle-steps/s")
+    return total
+
+
 def main():
     try:
         smi = subprocess.run(
@@ -1005,6 +1498,9 @@ def main():
     checks.update(check_config4_kernels())
     print("[3] the K1/K2 variants with p0 and rgba8 streams, K7 and K12:")
     checks.update(check_slice3_kernels())
+    print("[3] the merge reorder (K10, K11) on real frames' inputs, and K1 "
+          "in gather modes 3 and 2 at config-3 shapes:")
+    checks.update(check_merge_kernels())
 
     eng, launches2 = run_config2()
     err_p, grids = replay(eng)
@@ -1016,10 +1512,14 @@ def main():
     launches4 = run_config4()
     launches_a = run_path_a()
     launches_bc = run_paths_b_c()
+    launches_m2 = run_merge_config2()
+    eng3, launches_m3 = run_merge_config3()
+    launches_big = run_config5_and_mode2(eng3)
     if "jax" in sys.modules:
         fail("the port imported jax")
 
-    runs = (launches2, launches4, launches_a, launches_bc)
+    runs = (launches2, launches4, launches_a, launches_bc, launches_m2,
+            launches_m3, launches_big)
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

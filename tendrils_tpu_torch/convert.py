@@ -17,6 +17,8 @@ from .state import SimState
 _BACKENDS = {"pallas": "kernel", "xla": "xla"}
 _SIM_FIELDS = ("particles", "previous", "targets", "flow", "view",
                "color_map", "idx")
+# Fields that may be None (absent).
+_OPTIONAL = ("force", "sort_key", "sort_hist")
 
 
 def engine_config(jax_cfg) -> EngineConfig:
@@ -30,24 +32,24 @@ def engine_config(jax_cfg) -> EngineConfig:
 
 def sim_from_numpy(arrays, device="cuda") -> SimState:
     """A SimState on `device` from a dict of numpy arrays named like the
-    JAX `SimState` fields. `force` may be absent or None; the JAX `key` is
-    ignored (it has no counterpart); a merge-reorder carry is refused."""
-    if arrays.get("sort_key") is not None:
-        raise ValueError("merge-reorder carries (sort_key) are not ported")
+    JAX `SimState` fields. `force` and the merge-reorder carry (`sort_key`,
+    `sort_hist`) may be absent or None; the JAX `key` is ignored (it has
+    no counterpart)."""
     kw = {k: torch.tensor(np.asarray(arrays[k]), device=device)
           for k in _SIM_FIELDS}
     kw["idx"] = kw["idx"].to(torch.int32)
-    force = arrays.get("force")
-    if force is not None:
-        kw["force"] = torch.tensor(np.asarray(force), device=device)
+    for k in _OPTIONAL:
+        if arrays.get(k) is not None:
+            kw[k] = torch.tensor(np.asarray(arrays[k]), device=device)
     return SimState(**kw)
 
 
 def sim_to_numpy(sim: SimState) -> dict:
-    """The SimState as a dict of numpy arrays (`force` None when absent)."""
-    out = {k: getattr(sim, k).cpu().numpy() for k in _SIM_FIELDS}
-    out["force"] = None if sim.force is None else sim.force.cpu().numpy()
-    return out
+    """The SimState as a dict of numpy arrays (`force`, `sort_key` and
+    `sort_hist` None when absent)."""
+    return {k: None if getattr(sim, k) is None
+            else getattr(sim, k).cpu().numpy()
+            for k in _SIM_FIELDS + _OPTIONAL}
 
 
 def params_from_numpy(params, device="cuda") -> dict:

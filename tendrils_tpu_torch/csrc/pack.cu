@@ -9,12 +9,16 @@
 //   mapped given: pack the render colour model to an rgba8 word
 //                 (emit_rgba; textured colour maps, non-resident draws);
 //                 else the splat computes it from a 1x1 map's scalars;
-//   idx given:    the combined key `tile << 20 | row id` (gather mode 1);
-//                 else the tile alone (gather mode 0).
+//   idx given:    the combined key `tile << idx_bits | (id & (2^idx_bits -
+//                 1))`: idx_bits 20 in gather mode 1 (the whole id), 19 in
+//                 gather mode 3 (the id's low bits; draw_cuda hides its
+//                 high bits in the riding positions' mantissa LSBs);
+//                 else the tile alone (gather mode 0, and mode 2, where
+//                 the id rides the sort as a stream of its own).
 //
 // Per segment it writes up to five int32 words:
 //   keym: the tile of the segment's bounding-box top-left corner (minus the
-//         half line width), joined with the row id in gather mode 1;
+//         half line width), joined with the row id in gather modes 1, 3;
 //   p0, p1: the end points at 1/pscale px fixed point, y << 15 | x;
 //   vl:   velocity / speedLimit as two q15 fields, live flag in bit 30;
 //   rgba: r, g, b in 255 levels and a in 127 levels of [0, COLOR_MAX]
@@ -65,7 +69,7 @@ __global__ void pack_kernel(const float* __restrict__ scal,
                             const float* __restrict__ p0_pix,
                             const float* __restrict__ pos,
                             const float* __restrict__ mapped, int n, int h,
-                            int w, int tiles_x, float pscale,
+                            int w, int tiles_x, int idx_bits, float pscale,
                             int* __restrict__ keym_out,
                             int* __restrict__ p1_out,
                             int* __restrict__ vl_out,
@@ -126,7 +130,9 @@ __global__ void pack_kernel(const float* __restrict__ scal,
   // top >= 0, so C's truncating division is the floor division JAX uses.
   const int key = ((int)floorf(top_y) / TILE_H) * tiles_x +
                   (int)floorf(top_x) / TILE_W;
-  keym_out[i] = idx == nullptr ? key : key * (1 << 20) + idx[i];
+  const int id_mask = (1 << idx_bits) - 1;
+  keym_out[i] = idx == nullptr ? key
+                               : key * (1 << idx_bits) + (idx[i] & id_mask);
 }
 
 }  // namespace
@@ -135,12 +141,12 @@ extern "C" int tt_pack(const float* scal, const float* p1_pix,
                        const float* vel, const float* live, const int* idx,
                        const float* p0_pix, const float* pos,
                        const float* mapped, int n, int h, int w, int tiles_x,
-                       float pscale, int* keym, int* p1, int* vl, int* p0,
-                       int* rgba, void* stream) {
+                       int idx_bits, float pscale, int* keym, int* p1, int* vl,
+                       int* p0, int* rgba, void* stream) {
   if (n > 0) {
     pack_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
         scal, p1_pix, vel, live, idx, p0_pix, pos, mapped, n, h, w, tiles_x,
-        pscale, keym, p1, vl, p0, rgba);
+        idx_bits, pscale, keym, p1, vl, p0, rgba);
   }
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,10 @@ frame:
 The resident frame (`resident_stream=True`, the default) lets the state
 ride the draw's sort: the next force's gather and the state reassembly
 run in one pass (K4), and the sorted order becomes the next frame's row
-order (`sim.idx`). The classic frame (`resident_stream=False`) and the
+order (`sim.idx`). With `merge_reorder=True` it restores that order by
+merging the rows whose key changed (K10, K11; `ops/reorder_cuda.py`)
+against the carry `sim.sort_key` / `sim.sort_hist`, instead of sorting
+all N rows. The classic frame (`resident_stream=False`) and the
 paused draw (`Tendrils.draw`) keep the row order: the draw sends the exact
 p0 and rgba8 colour streams, and the next force is gathered at the sorted
 p1 (K7, packed q15) and un-sorted by row id (`force_from_aux`). A textured
@@ -45,11 +48,13 @@ from .const import INERT
 from .ops import coords, flow as flow_ops, logic, not_ported
 from .ops import optical_flow as of_ops, post as post_ops, render, sample
 from .ops import spawn as spawn_ops, splat as splat_ops
-from .ops.draw_cuda import (KMAX_WIDTH, fused_draw, pos_scale_for,
-                            reconstruct_resident)
+from .ops.draw_cuda import (KMAX_WIDTH, fused_draw, gather_mode,
+                            pos_scale_for, reconstruct_resident,
+                            seg_tile_count)
 from .ops.gather_cuda import (bilinear_gather, bilinear_gather_keyed_p1,
                               bilinear_gather_keyed_q15,
                               gather_reconstruct_p1)
+from .ops.reorder_cuda import MAXKEY, merge_eligible
 from .ops.tile_geom import HALF
 from .timer import Timer
 
@@ -74,6 +79,9 @@ class EngineConfig:
     fused_draw: bool = True
     carry_force: bool = True
     resident_stream: bool = True
+    # Merge reorder: restore the resident stream's sorted row order by
+    # merging the churned rows instead of sorting all N (falls back to the
+    # sort whenever its guards trip). Off by default, as in the JAX package.
     merge_reorder: bool = False
 
     @property
@@ -98,6 +106,29 @@ def resident_enabled(cfg: EngineConfig) -> bool:
     """Whether the frame runs in resident-stream mode (the state rides the
     draw's segment sort)."""
     return carry_enabled(cfg) and cfg.resident_stream
+
+
+def merge_reorder_enabled(cfg: EngineConfig) -> bool:
+    """Whether resident frames restore sortedness by the merge reorder:
+    the flag, the resident frame, and the resident draw's stream admitted
+    by `reorder_cuda.merge_eligible`, the gate the draw applies too."""
+    return (cfg.merge_reorder and resident_enabled(cfg)
+            and merge_eligible(cfg.n, gather_mode(
+                cfg.n, seg_tile_count(cfg.view_res), ids=True,
+                resident=True, idx_bound=cfg.n)))
+
+
+def seed_sort_carry(sim: state_mod.SimState,
+                    cfg: EngineConfig) -> state_mod.SimState:
+    """(Re)seed the merge-reorder carry: an all-MAXKEY previous key makes
+    every row count as churned on the next frame, so the merge's capacity
+    guard trips into the flat sort, which re-establishes a valid carry."""
+    dev = sim.particles.device
+    return dataclasses.replace(
+        sim, sort_key=torch.full((cfg.n,), MAXKEY, dtype=torch.int32,
+                                 device=dev),
+        sort_hist=torch.zeros(seg_tile_count(cfg.view_res),
+                              dtype=torch.int32, device=dev))
 
 
 def host_widths(src) -> tuple[float, float]:
@@ -242,6 +273,11 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     the host's `(flowWidth, lineWidth)`) decides its blur without reading
     the device.
 
+    A resident draw of a sim that carries `sort_key` restores the row order
+    by the merge reorder and returns the new carry on the sim; where the
+    draw does not admit the merge, the carry is re-seeded
+    (`seed_sort_carry`).
+
     Returns `(sim', aux[, eff])` with `want_aux` (aux = (sorted row ids,
     sorted p1 words); `eff` with `want_eff` when no force was gathered),
     else `sim'`, as the JAX function does."""
@@ -256,8 +292,6 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     if want_force and not resident:
         raise ValueError("want_force requires the resident draw "
                          "(resident=True with want_aux)")
-    if resident and cfg.merge_reorder:
-        raise not_ported("the merge reorder", 10)
     if resident and targets_live:
         raise not_ported("live targets riding the sort", 7)
     pos = sim.particles[:2]
@@ -295,11 +329,16 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
         # The aux id is the ROW number: the force un-sorts to row order.
         idx = torch.arange(pos.shape[1], dtype=torch.int32,
                            device=pos.device)
+    reorder = None
+    if resident and sim.sort_key is not None:
+        # The merge-reorder carry: the keys the current row order is sorted
+        # by and their tile census.
+        reorder = (sim.sort_key, sim.sort_hist)
     want_eff = want_eff and fast_resolve and want_aux
     # K3 emits the decayed flow whenever it is read: by the caller
     # (`want_eff`) or by K4 here.
     k3_eff = fast_resolve and (want_eff or want_force)
-    new_flow, view0, aux, ride_s, *eff = fused_draw(
+    new_flow, view0, aux, ride_s, *rest = fused_draw(
         sim.flow, view0, p0, p1, vel, pos, mapped,
         alive.to(torch.float32), params, time, grid_hw=(h, w),
         samples=cfg.view_samples, idx=idx, ride=ride,
@@ -307,8 +346,9 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
         view_size=view_size if resident else None,
         mapped_scalar=mapped_scalar,
         resolve="kernel" if fast_resolve else "xla", read_time=read_time,
-        want_eff=k3_eff, host_widths=host_widths)
-    eff = eff[0] if eff else None
+        want_eff=k3_eff, reorder=reorder, host_widths=host_widths)
+    carry = rest.pop() if reorder is not None else None
+    eff = rest[0] if rest else None
     view = torch.cat([view0[None], sim.view[1:]])
     if not resident:
         new_sim = dataclasses.replace(sim, flow=new_flow, view=view)
@@ -331,6 +371,13 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     new_sim = dataclasses.replace(
         sim, particles=particles, previous=previous, idx=aux[0],
         flow=new_flow, view=view, force=force)
+    if reorder is not None:
+        if carry is None:
+            # The draw did not admit the merge: the next frame falls back.
+            carry = (torch.full_like(sim.sort_key, MAXKEY),
+                     torch.zeros_like(sim.sort_hist))
+        new_sim = dataclasses.replace(new_sim, sort_key=carry[0],
+                                      sort_hist=carry[1])
     if want_eff and not want_force:
         return new_sim, aux, eff
     return new_sim, aux
@@ -492,8 +539,9 @@ def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
                  targets_live=True, fast_resolve=None, flow_off=False):
     """Fixed-step headless run of `steps` frames at times t0 + dt*(i + 1)
     (`_frame`). With the carried force it is seeded once by a gather at the
-    start (K5); without it each step gathers its own. Returns the final
-    state."""
+    start (K5); without it each step gathers its own. The merge-reorder
+    carry is seeded when the merge is enabled and stripped when it is not.
+    Returns the final state."""
     if flow_off:
         raise not_ported("flow_off (flowWeight == 0)", 7)
     device = sim.particles.device
@@ -504,6 +552,11 @@ def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
             sim, force=initial_force(sim, params, cfg, view_size, t0 + dt))
     elif not carry and sim.force is not None:
         sim = dataclasses.replace(sim, force=None)
+    merge = merge_reorder_enabled(cfg)
+    if merge and sim.sort_key is None:
+        sim = seed_sort_carry(sim, cfg)
+    elif not merge and sim.sort_key is not None:
+        sim = dataclasses.replace(sim, sort_key=None, sort_hist=None)
     if fast_resolve is None:
         fast_resolve = fast_resolve_ok(cfg, params)
     widths = host_widths(params)
@@ -577,12 +630,26 @@ class Tendrils:
         self.sim = state_mod.make_state(
             cfg.root_num, cfg.view_res, cfg.num_view_buffers,
             cfg.color_map_res, cfg.flow_shape, device=self.device)
+        self.reseed_derived()
         self.reset()
         return self
 
     def reset(self):
         """Respawn all-inert — ref `src/index.js:156-160`."""
         return self.spawn()
+
+    def reseed_derived(self):
+        """Re-seed the state's derived caches after a state swap (setup, a
+        converted state): the merge-reorder carry gets its MAXKEY seed when
+        the merge is enabled (the next frame flat-sorts and re-establishes
+        it) and is dropped when it is not; the carried force stays."""
+        if self.sim is not None:
+            if merge_reorder_enabled(self.config):
+                self.sim = seed_sort_carry(self.sim, self.config)
+            elif self.sim.sort_key is not None:
+                self.sim = dataclasses.replace(self.sim, sort_key=None,
+                                               sort_hist=None)
+        return self
 
     def restart(self):
         """Clear + reset — ref `src/index.js:241-246`."""

@@ -1,10 +1,12 @@
 """Named sim configurations (`tendrils_tpu/models/configs.py`) for the
 port's slices: BASELINE config 2 (`one_m_flow`, the headless main path),
+config 3 (`respawn_stress_4m`, 4M particles, the caller respawning),
 config 4 (`optical_flow_driven`, the camera- and pointer-driven
-interactive frame, `Tendrils.step_draw_io`) and the config-1 family
-preview. `build(name)` returns a spawned, ready-to-step engine on
-`device`. The other configurations need frame variants still to be ported
-(ROADMAP.md queue 1, items 7 and 13).
+interactive frame, `Tendrils.step_draw_io`), config 5 (`live_show_16m`,
+16.7M particles at 4K, headless: its show frame's bokeh and blur are not
+ported yet) and the config-1 family preview. `build(name)` returns a
+spawned, ready-to-step engine on `device`; `EngineConfig(merge_reorder=
+True)` in place of its config turns the merge reorder on.
 """
 
 from ..engine import EngineConfig, Tendrils
@@ -35,6 +37,13 @@ def one_m_flow(view_res=(1080, 1920), device="cuda"):
                                  **_backends()), device=device)
 
 
+def respawn_stress_4m(view_res=(1080, 1920), device="cuda"):
+    """BASELINE config 3: 4M particles (respawn stress driven by the
+    caller)."""
+    return _spawned(EngineConfig(root_num=2048, view_res=view_res,
+                                 **_backends()), device=device)
+
+
 def optical_flow_driven(view_res=(720, 1280), device="cuda"):
     """BASELINE config 4: camera-flow-driven 512² sim (feed frames via
     `media.OpticalFlow` and pointer paths via `flow_line.FlowLines` to
@@ -43,10 +52,18 @@ def optical_flow_driven(view_res=(720, 1280), device="cuda"):
                                  **_backends()), device=device)
 
 
+def live_show_16m(view_res=(2160, 3840), device="cuda"):
+    """BASELINE config 5 / north star: 16.7M particles, 4K trail buffer."""
+    return _spawned(EngineConfig(root_num=4096, view_res=view_res,
+                                 **_backends()), device=device)
+
+
 MODELS = {
     "default-preview": default_preview,
     "1m-flow": one_m_flow,
+    "4m-respawn-stress": respawn_stress_4m,
     "optical-flow-driven": optical_flow_driven,
+    "16m-live-show": live_show_16m,
 }
 
 

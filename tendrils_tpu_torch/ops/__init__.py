@@ -1,6 +1,6 @@
 """Tensor ops of the port: plain PyTorch, plus the hand-written CUDA kernels
-of the fused draw (`draw_cuda`), the gathers (`gather_cuda`) and the point
-splat (`splat_cuda`)."""
+of the fused draw (`draw_cuda`), the gathers (`gather_cuda`), the point
+splat (`splat_cuda`) and the merge reorder (`reorder_cuda`)."""
 
 
 def not_ported(what, item):

@@ -12,7 +12,9 @@ Each C entry launches on PyTorch's current stream and returns
 `cudaGetLastError()`; `launch` raises if that is not 0. Per-kernel counters
 show which path a run took: `launches[name]` counts kernel launches (the
 wrappers add one per launch), `plain_calls[name]` counts calls of the plain
-PyTorch versions.
+PyTorch versions. `events` counts what the merge reorder did on each frame
+that tried it: `reorder_merged` (the merge's order kept) or
+`reorder_fallback` (a guard tripped and the frame flat-sorted).
 """
 
 import collections
@@ -38,8 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> argument types; the last is the stream (every entry's).
 _SIGNATURES = {
-    "tt_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P,
-                _P, _P, _P, _P],
+    "tt_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
+                _P, _P, _P, _P, _P],
     "tt_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
     "tt_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tt_gather_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P,
@@ -50,10 +52,14 @@ _SIGNATURES = {
     "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "tt_gather_keyed_q15": [_P, _I, _I, _P, _P, _I, _F, _P, _P],
     "tt_gather_keyed": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "tt_reorder_compact": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "tt_reorder_apply": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P,
+                         _P, _P, _P],
 }
 
 launches = collections.Counter()
 plain_calls = collections.Counter()
+events = collections.Counter()
 build_seconds = None  # wall time of this process's nvcc run, if it ran one
 _lib = None
 
@@ -61,6 +67,7 @@ _lib = None
 def reset_counts():
     launches.clear()
     plain_calls.clear()
+    events.clear()
 
 
 def _nvcc():

@@ -1,16 +1,23 @@
 """Fused draw: both render passes (flow payload + view colour) from ONE
 segment sort, on hand-written CUDA kernels.
 
-The port of `tendrils_tpu/ops/draw_pallas.py` in gather modes 0 and 1 (no
-row ids, or the combined `tile << 20 | row id` sort key), with in-kernel
-line widths up to `KMAX_WIDTH`:
+The port of `tendrils_tpu/ops/draw_pallas.py`, with in-kernel line widths
+up to `KMAX_WIDTH`, in the four gather modes (`gather_mode`), which say how
+the row ids cross the sort: 0 none; 1 the combined `tile << 20 | row id`
+key (up to 2^20 rows and 2048 tiles); 3, resident frames beyond that,
+`tile << 19 | id & (2^19 - 1)` with the id's five high bits hidden in the
+low mantissa bits of the riding positions (x: 2, y: 3) and cleared after
+the sort; 2 the tile alone, the ids a stream of their own:
 
   K1 `pack`    (csrc/pack.cu)    per segment: sort key, fixed-point p1,
                                  q15 velocity word with the live bit, and
                                  optionally the fixed-point p0 word and the
                                  rgba8 colour word;
   sort         `torch.sort` of the key (the JAX package sorts with
-               `lax.sort` too), the other streams follow by index;
+               `lax.sort` too), the other streams follow by index; or, on
+               resident frames that carry the previous order
+               (`reorder=`), the merge reorder (`reorder_cuda`: K10, K11),
+               falling back to the sort when its guards trip;
   K2 `splat`   (csrc/splat.cu)   per (segment, sample): box-footprint
                                  deposits into the padded 11-channel
                                  accumulator;
@@ -30,8 +37,8 @@ sends the exact p0 word and keys by it. Colours come from a 1x1 colour
 map's four scalars, computed in the splat, or, for a textured map, as the
 rgba8 word K1 packs. K1 and K2 are one kernel each whose optional streams
 are switched by null pointers; each variant counts under its own name
-(`pack`, `pack_rgba`, `pack_p0_rgba`; `splat`, `splat_rgba`,
-`splat_p0_rgba`; `_variant`).
+(`pack`, `pack_rgba`, `pack_p0_rgba`, with `_g2` or `_g3` in gather modes
+2 and 3; `splat`, `splat_rgba`, `splat_p0_rgba`; `_variant`).
 
 Each kernel's wrapper takes the plain PyTorch version (`pack_plain`,
 `splat_plain`, `resolve_plain`, `reconstruct_resident_plain`) when its
@@ -47,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..const import INERT
-from . import cuda_lib, not_ported
+from . import cuda_lib, not_ported, reorder_cuda
 from .splat import composite_over
 from .tile_geom import HALF, PAD_LO_H, PAD_LO_W, TILE_H, TILE_W, pad_dims
 
@@ -58,6 +65,11 @@ N_FLOW = 5
 # Gather mode 1 (the combined 20-bit key|id word) bounds.
 G1_MAX_ROWS = 1 << 20
 G1_MAX_TILES = 1 << 11
+# Gather mode 3 (resident, beyond mode 1): the id's low PACK_IDX_BITS share
+# the key word, its high bits (at most 5) ride the positions' LSBs.
+PACK_IDX_BITS = 19
+PACK_MAX_TILES = 1 << 12
+PACK_MAX_IDS = 1 << 24
 COLOR_MAX = 4.0
 KMAX_WIDTH = 8.0
 KSPAN = 9  # texels a box of width <= KMAX_WIDTH can touch along one axis
@@ -89,9 +101,40 @@ def _vec(v, device):
     return torch.as_tensor(v, dtype=_F32, device=device).reshape(-1)
 
 
-def _variant(kernel, p0, rgba):
-    """Counter name of a K1/K2 variant: `kernel[_p0][_rgba]`."""
-    return kernel + ("_p0" if p0 else "") + ("_rgba" if rgba else "")
+def seg_tile_count(grid_hw):
+    """Tile count of the fused draw's segment keys for `grid_hw`: the
+    merge-reorder carry histogram's length (`engine.seed_sort_carry`)."""
+    hp, wp = pad_dims(*grid_hw)
+    return (hp // TILE_H) * (wp // TILE_W)
+
+
+def gather_mode(n, num_tiles, *, ids, resident, idx_bound=None):
+    """How a draw's row ids cross its sort (`draw_pallas.py:1148-1174`,
+    condition for condition; the port has no pad rows): 0 without ids; 1
+    (`tile << 20 | id`) when the rows, the tiles and `idx_bound` (an
+    exclusive bound on the id values) fit; 3 on a `resident` stream
+    (exact positions riding the sort) within PACK_MAX_TILES and
+    PACK_MAX_IDS; else 2."""
+    if not ids:
+        return 0
+    if n <= G1_MAX_ROWS and num_tiles <= G1_MAX_TILES \
+            and (idx_bound is None or idx_bound <= n):
+        return 1
+    if resident and num_tiles <= PACK_MAX_TILES \
+            and (n if idx_bound is None else idx_bound) <= PACK_MAX_IDS:
+        return 3
+    return 2
+
+
+def _idx_bits(gather):
+    """Bits of the row id in the sort key (0: the key is the tile)."""
+    return {1: 20, 3: PACK_IDX_BITS}.get(gather, 0)
+
+
+def _variant(kernel, p0, rgba, gather=0):
+    """Counter name of a K1/K2 variant: `kernel[_p0][_rgba][_g2|_g3]`."""
+    return (kernel + ("_p0" if p0 else "") + ("_rgba" if rgba else "")
+            + (f"_g{gather}" if gather in (2, 3) else ""))
 
 
 def _unq15(q):
@@ -117,26 +160,29 @@ def _q15(v):
 
 
 def pack(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
-         pos=None, mapped=None):
+         pos=None, mapped=None, gather=None):
     """K1: per-segment sort key, p1 and velocity words (`i32[N]` each),
     and optionally the p0 and rgba8 words.
 
     `scal`: `f32[32]` per-frame scalars (`_draw_scal`); `p1_pix`: `f32[N, 2]`
     end points in window px; `vel`: `f32[2, N]`; `live`: `f32[N]`; `idx`:
-    `i32[N]` row ids (gather mode 1: key = tile << 20 | id) or None (gather
-    mode 0: key = tile). With `p0_pix` (`f32[N, 2]`) the p0 word is emitted
+    `i32[N]` row ids or None; `gather` (1 with ids, 0 without, by default):
+    key = tile << 20 | id in mode 1, tile << 19 | (id & (2^19 - 1)) in
+    mode 3, the tile alone in modes 0 and 2 (mode 2's ids ride the sort
+    apart). With `p0_pix` (`f32[N, 2]`) the p0 word is emitted
     and the key comes from the exact quantised p0 (`emit_p0`); without it,
     from the p0 the splat re-derives from p1 and the velocity
     (`key_recon`). With `mapped` (`f32[4, N]`, the colour-map lookup times
     colorMapAlpha) and `pos` (`f32[2, N]` NDC positions, for the vignette)
     the render colour model is packed to an rgba8 word (`emit_rgba`).
     Returns `(keym, p1, vl, p0 or None, rgba or None)`."""
+    gather = _check_gather(idx, gather)
     tensors = [t for t in (scal, p1_pix, vel, live, idx, p0_pix, pos, mapped)
                if t is not None]
     if cuda_lib.on_cpu(*tensors):
         return pack_plain(scal, p1_pix, vel, live, idx, grid_hw=grid_hw,
                           pscale=pscale, p0_pix=p0_pix, pos=pos,
-                          mapped=mapped)
+                          mapped=mapped, gather=gather)
     n = p1_pix.shape[0]
     h, w = grid_hw
     cuda_lib.check(scal, "scal", _F32, (32,))
@@ -158,12 +204,23 @@ def pack(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
     p0 = None if p0_pix is None else new()
     rgba = None if mapped is None else new()
     tiles_x = pad_dims(h, w)[1] // TILE_W
+    bits = _idx_bits(gather)
     cuda_lib.launch("tt_pack", _variant("pack", p0 is not None,
-                                        rgba is not None),
-                    scal, p1_pix, vel, live, idx, p0_pix,
+                                        rgba is not None, gather),
+                    scal, p1_pix, vel, live, idx if bits else None, p0_pix,
                     None if mapped is None else pos, mapped, n, h, w,
-                    tiles_x, float(pscale), keym, p1, vl, p0, rgba)
+                    tiles_x, bits, float(pscale), keym, p1, vl, p0, rgba)
     return keym, p1, vl, p0, rgba
+
+
+def _check_gather(idx, gather):
+    """`gather` for K1's `idx` (1 with ids, 0 without, by default)."""
+    if gather is None:
+        gather = 0 if idx is None else 1
+    if gather not in (0, 1, 2, 3) or (idx is None) != (gather == 0):
+        raise ValueError(f"gather mode {gather} with idx "
+                         f"{'absent' if idx is None else 'given'}")
+    return gather
 
 
 def _color_model(scal, vnx, vny, posx, posy, mapped):
@@ -216,10 +273,11 @@ def _render_rgba(scal, vnx, vny, posx, posy, mapped):
 
 
 def pack_plain(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
-               pos=None, mapped=None):
+               pos=None, mapped=None, gather=None):
     """Plain version of K1 (`draw_pallas._pack_core`)."""
+    gather = _check_gather(idx, gather)
     cuda_lib.plain_calls[_variant("pack", p0_pix is not None,
-                                  mapped is not None)] += 1
+                                  mapped is not None, gather)] += 1
     h, w = grid_hw
     tiles_x = pad_dims(h, w)[1] // TILE_W
     sl_raw = scal[0]
@@ -261,7 +319,8 @@ def pack_plain(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
     krow = torch.floor(top_y).to(_I32) // TILE_H
     kcol = torch.floor(top_x).to(_I32) // TILE_W
     key = krow * tiles_x + kcol
-    keym = key if idx is None else key * (1 << 20) + idx
+    bits = _idx_bits(gather)
+    keym = key if not bits else key * (1 << bits) + (idx & ((1 << bits) - 1))
     return keym, p1, vl, p0, rgba
 
 
@@ -418,24 +477,70 @@ def _draw_scal(speed_limit, time, flow_width, line_width, speed_alpha,
         torch.zeros(10, device=device), view_size)])
 
 
-def _bin_and_splat(scal, words, ride, *, ids, samples, grid_hw, pscale):
+def _hide_id_bits(ride, idx):
+    """Gather mode 3: the ids' bits above PACK_IDX_BITS into the low
+    mantissa bits of the riding positions (x: 2, y: 3;
+    `draw_pallas.py:1175-1183`), through an int32 view of their bits."""
+    hi = idx >> PACK_IDX_BITS
+    xi = ride[0].view(_I32)
+    yi = ride[1].view(_I32)
+    return [((xi & ~3) | (hi & 3)).view(_F32),
+            ((yi & ~7) | (hi >> 2)).view(_F32)]
+
+
+def _read_ok(ok):
+    """The merge's `ok` on the host: the merge frame's one synchronisation
+    (a function of its own so that `frame_profile.py` can time it)."""
+    return bool(ok)
+
+
+def _merge_or_sort(keym, reorder, n_tiles, idx_bits):
+    """The merge reorder against the carried order `reorder = (prev_key,
+    prev_hist)` (`reorder_cuda.merge_reorder`, K10 and K11), or the flat
+    sort when its guards trip. Its `ok` is read on the host, the frame's
+    one synchronisation (the JAX package picks with `lax.cond` on the
+    device); each read counts in `cuda_lib.events` as `reorder_merged` or
+    `reorder_fallback`. Returns `(keym_s, perm, carry)`, carry = the
+    sorted keys and their tile census, the next frame's `reorder`."""
+    ok, keym_s, perm, hist = reorder_cuda.merge_reorder(
+        keym, *reorder, n_tiles=n_tiles, idx_bits=idx_bits)
+    if _read_ok(ok):
+        cuda_lib.events["reorder_merged"] += 1
+    else:
+        cuda_lib.events["reorder_fallback"] += 1
+        keym_s, perm = torch.sort(keym)
+        hist = reorder_cuda.tile_hist(keym >> idx_bits, n_tiles)
+    return keym_s, perm, (keym_s, hist)
+
+
+def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
+                   pscale, reorder=None):
     """Sort the segments by their key, then splat them (K2).
 
     `words`: K1's `(keym, p1, vl, p0, rgba)`, p0 and rgba None when not
     emitted. `ride`: the exact f32 positions `[x, y]` riding the sort
-    (resident stream), or None. In gather mode 1 keys are unique, so the
-    order is fully determined; in gather mode 0 only the key order is (the
-    deposits are sums, so the order within a tile does not matter). With
-    `ride`, the sorted p1 word is recomputed from the sorted exact
-    positions (the JAX `p1_from_ride`: the same f32 pixel transform, clip
-    and round as the pack, so bit-identical); without it, p1 is sorted.
-    Returns `(accum, aux, ride_sorted)`: aux = `(idx_s, p1_s)`, the sorted
-    row ids of gather mode 1 (`ids`) and p1 words (None without `ids`),
-    ride_sorted =
-    `[x_s, y_s, vl_s]` (None without `ride`)."""
+    (resident stream), or None; in gather mode 3 they carry the ids' high
+    bits, which are read back and cleared after the sort (the cleaned
+    positions are what every later stage sees). In gather mode 1 keys are
+    unique, so the order is fully determined; in modes 0, 2 and 3 only the
+    key order is (mode 3 keys tie where ids share their low bits and tile;
+    the deposits are sums and the ids follow their rows). With `ride`, the
+    sorted p1 word is recomputed from the sorted exact positions (the JAX
+    `p1_from_ride`: the same f32 pixel transform, clip and round as the
+    pack, so bit-identical); without it, p1 is sorted. `reorder`: the
+    merge reorder's carry (`_merge_or_sort`) in place of the sort.
+    Returns `(accum, aux, ride_sorted, carry)`: aux = `(idx_s, p1_s)`, the
+    sorted row ids (from the key in modes 1 and 3, sorted along in mode 2)
+    and p1 words (None in mode 0), ride_sorted = `[x_s, y_s, vl_s]` (None
+    without `ride`), carry None without `reorder`."""
     h, w = grid_hw
     keym, p1, vl, p0, rgba = words
-    keym_s, perm = torch.sort(keym)
+    carry = None
+    if reorder is None:
+        keym_s, perm = torch.sort(keym)
+    else:
+        keym_s, perm, carry = _merge_or_sort(
+            keym, reorder, seg_tile_count(grid_hw), _idx_bits(gather))
     vl_s = vl[perm]
     p0_s = None if p0 is None else p0[perm]
     rgba_s = None if rgba is None else rgba[perm]
@@ -444,14 +549,25 @@ def _bin_and_splat(scal, words, ride, *, ids, samples, grid_hw, pscale):
         p1_s = p1[perm]
     else:
         x_s, y_s = ride[0][perm], ride[1][perm]
+        if gather == 3:
+            xi, yi = x_s.view(_I32), y_s.view(_I32)
+            id_hi = ((xi & 3) << PACK_IDX_BITS) \
+                | ((yi & 7) << (PACK_IDX_BITS + 2))
+            x_s, y_s = (xi & ~3).view(_F32), (yi & ~7).view(_F32)
         x1q, y1q = _qpos((x_s * scal[30] * 0.5 + 0.5) * w,
                          (y_s * scal[31] * 0.5 + 0.5) * h, grid_hw, pscale)
         p1_s = y1q * (HALF + 1) + x1q
         ride_s = [x_s, y_s, vl_s]
     accum = splat(scal, p1_s, vl_s, samples=samples, grid_hw=grid_hw,
                   pscale=pscale, p0=p0_s, rgba=rgba_s)
-    aux = (keym_s & ((1 << 20) - 1), p1_s) if ids else None
-    return accum, aux, ride_s
+    aux = None
+    if gather == 2:
+        aux = (idx[perm], p1_s)
+    elif gather:
+        bits = _idx_bits(gather)
+        idx_s = keym_s & ((1 << bits) - 1)
+        aux = (idx_s | id_hi if gather == 3 else idx_s, p1_s)
+    return accum, aux, ride_s, carry
 
 
 def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
@@ -469,14 +585,18 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
     the splat re-derives; otherwise `p0_pix` is packed. `mapped_scalar`
     (`f32[4]`, with derive_p0) moves the colour model of a 1x1 colour map
     into the splat; otherwise `mapped` (`f32[4, N]`) and `pos_ndc` are
-    packed to rgba8. `idx` selects gather mode 1 (aux streams for the
-    force gather) and `ride=[x, y]` the resident stream. Returns
+    packed to rgba8. `idx` (aux streams for the force gather, bounded by
+    `idx_bound`) selects gather mode 1, 2 or 3 (`gather_mode`) and
+    `ride=[x, y]` the resident stream. `reorder=(prev_key, prev_hist)`
+    (resident frames): the merge reorder's carry, used where
+    `reorder_cuda.merge_eligible` admits the stream. Returns
     `(accum f32[11, hp, wp], None, aux, ride_sorted)` with `raw_accum`,
     else `(flow_parts, view_parts, aux, ride_sorted)`, each part
     `(num, wsum, logt)` over the content grid (`draw_pallas.py:1030-1035`);
     aux is None without `idx`, ride_sorted None without `ride` (see
-    `_bin_and_splat`). All over the N real rows: the TPU's block padding
-    has no counterpart."""
+    `_bin_and_splat`). With `reorder` a fifth element is the next frame's
+    carry, None when the merge was not admitted. All over the N real rows:
+    the TPU's block padding has no counterpart."""
     if derive_p0 == (p0_pix is not None):
         raise ValueError("give p0_pix exactly when derive_p0 is False")
     if (mapped_scalar is None) == (mapped is None):
@@ -487,16 +607,16 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
         raise not_ported("live targets riding the sort", 7)
     if flow_off:
         raise not_ported("flow_off (flowWeight == 0)", 7)
-    if reorder is not None:
-        raise not_ported("the merge reorder", 10)
     h, w = grid_hw
     hp, wp = pad_dims(h, w)
     n = p1_pix.shape[0]
-    if idx is not None and (
-            n > G1_MAX_ROWS or (hp // TILE_H) * (wp // TILE_W) > G1_MAX_TILES
-            or (idx_bound is not None and idx_bound > n)):
-        raise not_ported("gather modes 2 and 3 (over 2^20 rows or 2048 "
-                         "tiles: configs 3 and 5)", 7)
+    gather = gather_mode(n, seg_tile_count(grid_hw), ids=idx is not None,
+                         resident=derive_p0 and ride is not None,
+                         idx_bound=idx_bound)
+    if gather == 3:
+        ride = _hide_id_bits(ride, idx)
+    merge = reorder if reorder is not None \
+        and reorder_cuda.merge_eligible(n, gather) else None
     pscale = _pos_scale(hp, wp)
     dev = p1_pix.device
     zeros4 = torch.zeros(4, device=dev)
@@ -510,16 +630,18 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
     words = pack(scal, p1_pix, vel, live, idx, grid_hw=grid_hw,
                  pscale=pscale, p0_pix=p0_pix,
                  pos=None if mapped is None else pos_ndc.contiguous(),
-                 mapped=mapped)
-    accum, aux, ride_s = _bin_and_splat(scal, words, ride,
-                                        ids=idx is not None, samples=samples,
-                                        grid_hw=grid_hw, pscale=pscale)
+                 mapped=mapped, gather=gather)
+    accum, aux, ride_s, carry = _bin_and_splat(
+        scal, words, ride, idx=idx, gather=gather, samples=samples,
+        grid_hw=grid_hw, pscale=pscale, reorder=merge)
+    tail = () if reorder is None else (carry,)
     if raw_accum:
-        return accum, None, aux, ride_s
+        return (accum, None, aux, ride_s, *tail)
     out = accum[:, PAD_LO_H:PAD_LO_H + h, PAD_LO_W:PAD_LO_W + w]
     # The flow payload's stamp numerator is time x wsum (constant stamp).
     fnum = torch.cat([out[0:2], (time * out[3])[None], out[2:3]])
-    return (fnum, out[3], out[4]), (out[5:9], out[9], out[10]), aux, ride_s
+    return ((fnum, out[3], out[4]), (out[5:9], out[9], out[10]), aux, ride_s,
+            *tail)
 
 
 # --- the XLA resolve tail ----------------------------------------------------
@@ -710,8 +832,9 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
     the caller has already cleared and faded). `host_widths`: the
     `(flowWidth, lineWidth)` host numbers that decide the tail's blur
     branch (read back from `params` when not given). Returns `(new_flow,
-    new_view, aux, ride_sorted[, eff])`; `eff`, the flow decayed to
-    `read_time`, only from K3."""
+    new_view, aux, ride_sorted[, eff][, carry])`; `eff`, the flow decayed
+    to `read_time`, only from K3; `carry` (the merge reorder's, see
+    `fused_draw_accumulate`) only with `reorder`."""
     if resolve not in ("kernel", "xla"):
         raise ValueError(f"unknown resolve: {resolve}")
     if psum is not None:
@@ -728,14 +851,15 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
         flow_decay=params["flowDecay"], base_color=params["baseColor"],
         flow_color=params["flowColor"], raw_accum=kernel, flow_off=flow_off,
         reorder=reorder)
-    aux, ride_s = out[2:]
+    aux, ride_s, tail = out[2], out[3], out[4:]
     if kernel:
         res = resolve_fused(
             out[0], flow, view, params["fadeColor"] * params["autoFade"],
             params["autoClearView"], time,
             time if read_time is None else read_time, params["flowDecay"],
             params["flowWidth"], params["lineWidth"], want_eff=want_eff)
-        return (res[0], res[1], aux, ride_s, *res[2:])
+        return (res[0], res[1], aux, ride_s, *res[2:], *tail)
     fw, lw = host_widths or (params["flowWidth"], params["lineWidth"])
     return (composite_over(flow, *_widen_excess(out[0], fw)),
-            composite_over(view, *_widen_excess(out[1], lw)), aux, ride_s)
+            composite_over(view, *_widen_excess(out[1], lw)), aux, ride_s,
+            *tail)

@@ -86,7 +86,13 @@ class SimState:
         reorder the rows by the draw's segment sort, so per-particle
         constants are recomputed from `idx`;
     force: `f32[2, N]` or None — the flow force for the NEXT step, gathered
-        at the end of the previous frame; None = gather in the step.
+        at the end of the previous frame; None = gather in the step;
+    sort_key / sort_hist: `i32[N]` / `i32[num_tiles]` or None — the
+        merge-reorder carry (resident frames with
+        `EngineConfig.merge_reorder`): the segment keys the current row
+        order is sorted by and their tile census. Derived state: a
+        MAXKEY-filled key (the seed) makes the next frame flat-sort and
+        re-establish it, so spawns and buffer edits never invalidate it.
 
     The JAX state's threefry `key` has no counterpart: the ball spawn is a
     deterministic coordinate hash, and stochastic spawns will take an
@@ -100,6 +106,8 @@ class SimState:
     color_map: torch.Tensor
     idx: torch.Tensor
     force: Any = None
+    sort_key: Any = None
+    sort_hist: Any = None
 
 
 def make_state(root_num: int = 512, view_res=(720, 1280), num_view_buffers=1,

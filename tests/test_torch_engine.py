@@ -111,24 +111,11 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="sharded.*item 12"):
         tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
                          axis_name="p")
-    # The merge reorder and the generic draw.
-    merge = tengine.Tendrils(dataclasses.replace(cfg, merge_reorder=True),
-                             device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="merge reorder.*item 10"):
-        merge.frame()
+    # The generic draw.
     generic = tengine.Tendrils(dataclasses.replace(cfg, fused_draw=False),
                                device="cpu").setup()
     with pytest.raises(NotImplementedError, match="generic.*item 4"):
         generic.frame()
-    # Gather modes 2 and 3 (row ids beyond the stream's row count).
-    from tendrils_tpu_torch.ops import draw_cuda
-    n = cfg.n
-    with pytest.raises(NotImplementedError, match="gather modes 2 and 3"):
-        draw_cuda.fused_draw_accumulate(
-            cfg.view_res, torch.zeros((n, 2)), torch.zeros((n, 2)),
-            torch.zeros((2, n)), torch.zeros((2, n)), torch.zeros((4, n)),
-            torch.ones(n), 0.01, 0.0, idx=torch.arange(n, dtype=torch.int32),
-            idx_bound=2 * n)
     # The interactive frame's unported post stack.
     io = tengine.Tendrils(cfg, device="cpu").setup()
     with pytest.raises(NotImplementedError, match="blur, bokeh.*item 9"):

@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from tendrils_tpu import engine as jengine, state as jstate
+from tendrils_tpu.models import configs as jconfigs
 from tendrils_tpu_torch import convert, engine as tengine, state as tstate
+from tendrils_tpu_torch.models import configs as tconfigs
 
 
 def test_default_state_and_params_match():
@@ -84,3 +86,18 @@ def test_entry_points_default_to_the_card(fn):
     """The public constructors put their tensors on the card unless the
     caller asks for the CPU (read from the signatures; nothing allocated)."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", sorted(tconfigs.MODELS))
+def test_models_match_the_jax_configurations(name, monkeypatch):
+    """Each named configuration is the JAX one (its backends mapped to the
+    kernels), spawned alike, on the card by default. Both packages'
+    `_spawned` are replaced, so nothing is allocated."""
+    for mod in (jconfigs, tconfigs):
+        monkeypatch.setattr(mod, "_spawned", lambda cfg, **kw: (cfg, kw))
+    jcfg, jkw = jconfigs.build(name)
+    tcfg, tkw = tconfigs.build(name)
+    assert tkw == dict(jkw, device="cuda")
+    assert tcfg == dataclasses.replace(convert.engine_config(jcfg),
+                                       splat_backend="kernel",
+                                       gather_backend="kernel")
