@@ -7,10 +7,14 @@ Phases (each prints a line; any failure exits non-zero before the result):
   2. build the kernels (nvcc, one process per source, from
      tendrils_tpu_torch/csrc/);
   3. each kernel against its plain PyTorch version on the card, with its
-     median time (CUDA events) beside the plain version's, its bound (the
-     least time the card could take: bytes over 3.35 TB/s or operations
-     over 67 TFLOP/s, the larger) and, where one PyTorch call computes the
-     same function, that call's time: K1-K5 at the config-2 shapes
+     time beside the plain version's, its bound (the least time the card
+     could take: bytes over 3.35 TB/s or operations over 67 TFLOP/s, the
+     larger) and, where one PyTorch call computes the same function, that
+     call's time. A time is the device time (`torch.profiler`, the
+     kernels' own CUDA time summed over 20 back-to-back calls, over 20;
+     3 calls for a plain version); beside a kernel's, its call time (CUDA
+     events around 20 back-to-back calls, over 20: the host's enqueue
+     included). K1-K5 at the config-2 shapes
      (1,048,576 particles, 1080x1920), K6, K8 and K9 at the config-4
      shapes (262,144 particles, 720x1280; K9 at a pointer frame's samples
      and at 2 x 262,144);
@@ -58,8 +62,15 @@ Phases (each prints a line; any failure exits non-zero before the result):
  10. at config 3 one classic frame and one paused `frame()` (gather mode
      2, K7); config 5 (`models.build("16m-live-show")`) headless, on and
      off: 2 warm steps and 3 timed runs of 10.
-Phase 3 also holds the K1/K2 variants with the p0 and rgba8 streams, K7
-and K12 (with `F.grid_sample` as its library yardstick), K10 and K11 on
+Phase 3 holds K2 (three launches: the plan, the tile pass in shared
+memory, the strays) in every variant on three more sorted streams: a real
+config-2 frame's after 30 frames, a classic p0 stream with long segments
+(its stray pass must add samples) and a real config-3 frame's (keys in
+the merge's order), printing the partition the kernels ran on each (rows
+a tile, split tiles, the stray pass's count). It times K5 and K12 against
+`F.grid_sample` in alternating turns, and holds the K1/K2 variants with
+the p0 and rgba8 streams, K7 and K12 (with `F.grid_sample` as its library
+yardstick), K10 and K11 on
 the merge inputs recorded from real config-3 and config-2 frames (with
 the boolean-mask selection as K10's yardstick and the flat `torch.sort`
 printed beside the whole merge) and K1 in gather modes 3 and 2 against
@@ -83,6 +94,9 @@ DT = 1000.0 / 60.0
 IO_FRAMES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+REPS = 20  # back-to-back calls a kernel or a library call is timed over
+PLAIN_REPS = 3  # the same for a plain version (up to ~0.4 s a call)
+LIB_ROUNDS = 7  # alternating turns of a kernel against its library call
 # Kernel -> (source, the TPU kernel it replaces).
 KERNELS = {
     "pack": ("tendrils_tpu_torch/csrc/pack.cu",
@@ -128,22 +142,25 @@ CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
                 "bilinear_gather")
 CONFIG4_PATH = ("pack", "splat", "resolve", "bilinear_gather",
                 "reconstruct_resident", "gather_keyed_p1", "splat_points")
-# Launches a frame of each new path (the others: none).
-PATH_A = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "resolve": 1,
+# Launches a frame of each new path (the others: none); K2 launches
+# three kernels a call (the plan, the tile pass, the strays).
+K2 = 3
+PATH_A = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "resolve": 1,
           "gather_keyed_q15": 1}
-PATH_C_RUNNING = {"pack_rgba": 1, "splat_rgba": 1, "resolve": 1,
+PATH_C_RUNNING = {"pack_rgba": 1, "splat_rgba": K2, "resolve": 1,
                   "reconstruct_resident": 1, "gather_keyed_p1": 1,
                   "splat_points": 1}
-PATH_C_PAUSED = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "splat_points": 1}
-PATH_B = {"pack_p0_rgba": 1, "splat_p0_rgba": 1, "gather_keyed_q15": 1}
+PATH_C_PAUSED = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "splat_points": 1}
+PATH_B = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "gather_keyed_q15": 1}
 # The resident frame with the merge on (K1 "pack" is "pack_g3" in gather
 # mode 3), with it off at configs 3 and 5, and the gather-mode-2 frames.
-MERGE_C2 = {"pack": 1, "splat": 1, "resolve": 1, "gather_reconstruct": 1,
+MERGE_C2 = {"pack": 1, "splat": K2, "resolve": 1, "gather_reconstruct": 1,
             "reorder_compact": 1, "reorder_apply": 1}
-CONFIG3_OFF = {"pack": 1, "splat": 1, "resolve": 1, "gather_reconstruct": 1}
-CLASSIC_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": 1, "resolve": 1,
+CONFIG3_OFF = {"pack": 1, "splat": K2, "resolve": 1, "gather_reconstruct": 1}
+CLASSIC_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": K2, "resolve": 1,
               "gather_keyed_q15": 1}
-PAUSED_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": 1, "gather_keyed_q15": 1}
+PAUSED_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": K2,
+             "gather_keyed_q15": 1}
 SEG = 10  # headless steps of a config-3 segment and a config-5 timed run
 
 
@@ -152,20 +169,72 @@ def fail(msg):
     sys.exit(1)
 
 
-def median_ms(fn, reps):
-    """Median device time of `fn` over `reps` calls (CUDA events)."""
+def time_calls(fn, reps=REPS):
+    """`(device ms, call ms, {kernel: device ms})` of one call of `fn`, each
+    over `reps` back-to-back calls after a warm one: the device time of
+    the kernels, copies and fills they ran, by `torch.profiler`, summed
+    and divided by `reps`; and the time between CUDA events around them,
+    divided by `reps`: what a caller pays, the host's enqueue included."""
+    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    call_ms = start.elapsed_time(end) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and ev.self_device_time_total > 0:
+            names[ev.key] = names.get(ev.key, 0.0) \
+                + ev.self_device_time_total / 1e3 / reps
+    if not names:
+        fail("torch.profiler recorded no device time")
+    return sum(names.values()), call_ms, names
+
+
+def timed_row(out, name, err, fn, plain_fn, nbytes, ops, library_fn=None,
+           plain_reps=PLAIN_REPS, label=""):
+    """Time a kernel's wrapper (`fn`), its plain version and, where one
+    PyTorch call computes the same function, that call; store the row
+    `out[name]` with the bound and print it."""
+    ms, call_ms, _ = time_calls(fn)
+    plain_ms = time_calls(plain_fn, plain_reps)[0]
+    library_ms = None if library_fn is None else time_calls(library_fn)[0]
+    b, by = bound(nbytes, ops)
+    out[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                     plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                     library_ms=library_ms)
+    print(f"  {name}{label}: max |d| {err:.3e}; device {ms:.4f} ms, call "
+          f"{call_ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms by "
+          f"{by}" + ("" if library_ms is None
+                     else f", library {library_ms:.4f} ms") + ")")
+
+
+def against_library(name, fn, library_fn, rounds=LIB_ROUNDS):
+    """A kernel and the library call that computes the same function,
+    each timed by device ms (`time_calls`) in `rounds` alternating turns:
+    prints both medians, their ranges and the median of the turns'
+    differences, which a gap must clear to stand."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(time_calls(fn)[0])
+        ls.append(time_calls(library_fn)[0])
+    diff = statistics.median(k - lib for k, lib in zip(ks, ls))
+    print(f"  {name} against the library call, {rounds} alternating turns "
+          f"of {REPS} calls: device {statistics.median(ks):.4f} ms "
+          f"({min(ks):.4f}-{max(ks):.4f}), library "
+          f"{statistics.median(ls):.4f} ms ({min(ls):.4f}-{max(ls):.4f}); "
+          f"kernel - library, median of the turns {diff * 1e3:+.2f} us")
 
 
 def bound(nbytes, ops):
@@ -235,9 +304,9 @@ def sorted_streams(n, grid_hw, sl, seed):
         t(np.float32([0.2, 0.5, 0.8, 1.0]) * np.float32(0.4)), vs_t, dev)
     pack_args = (scal, p1, t(vel), t(live), t(idx))
     words = draw_cuda.pack(*pack_args, grid_hw=grid_hw, pscale=pscale)
-    _, perm = torch.sort(words[0])
+    keym_s, perm = torch.sort(words[0])
     return dict(scal=scal, pack_args=pack_args, words=words, pscale=pscale,
-                p1_s=words[1][perm], vl_s=words[2][perm],
+                keym_s=keym_s, p1_s=words[1][perm], vl_s=words[2][perm],
                 x_s=pos_t[0][perm], y_s=pos_t[1][perm], pos=pos_t, vs=vs_t)
 
 
@@ -271,9 +340,141 @@ def within_channel_max(name, got, want):
     return err.max().item()
 
 
+def kw_plain(kw):
+    """`splat`'s keywords less the keys' id bits (its plain version has no
+    use for them)."""
+    return {k: v for k, v in kw.items() if k != "idx_bits"}
+
+
+def splat_work(keym_s, vl_s, hp, wp, words):
+    """K2's bytes and operations on a sorted stream (2 samples a segment):
+    `words` i32 words a row read, the padded 11-channel accumulator
+    written once; each live sample adds its box footprints (a width-W box
+    covers ceil(W) + 1 texels an axis but where it lies on texel edges:
+    flowWidth 5 over 5 channels, lineWidth 1 over 6) at 3 operations a
+    deposit, plus ~80 to derive it."""
+    live_samples = 2 * ((vl_s >> 30) & 1).sum().item()
+    deposits = live_samples * ((5 + 1) ** 2 * 5 + (1 + 1) ** 2 * 6)
+    return (4 * words * keym_s.numel() + 11 * hp * wp * 4 + 128,
+            3 * deposits + 80 * live_samples)
+
+
+def p0_words(scal, p1, vl, grid_hw, pscale):
+    """p0 words for a stream without them: p1 less the step its velocity
+    word re-derives (the splat's derive_p0), quantised as K1 quantises."""
+    from tendrils_tpu_torch.ops.tile_geom import HALF, PAD_LO_H, PAD_LO_W
+    h, w = grid_hw
+    inv_p = 1.0 / pscale
+    vel_u = vl & ((1 << 30) - 1)
+    vx = ((vel_u & HALF).float() * (2.0 / HALF) - 1.0) * scal[0]
+    vy = ((vel_u >> 15).float() * (2.0 / HALF) - 1.0) * scal[0]
+    x = torch.clamp((p1 & HALF).float() * inv_p - vx * (scal[30] * 0.5 * w),
+                    1.0, PAD_LO_W + w + 1.0)
+    y = torch.clamp((p1 >> 15).float() * inv_p - vy * (scal[31] * 0.5 * h),
+                    1.0, PAD_LO_H + h + 1.0)
+    return (torch.round(y * pscale).int() * (HALF + 1)
+            + torch.round(x * pscale).int())
+
+
+def exact_splat(scal, p1, vl, **kw):
+    """K2's deposits (the plain version's per-sample arithmetic) summed in
+    float64: the exact sum both f32 versions approximate."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    from tendrils_tpu_torch.ops.tile_geom import pad_dims
+    hp, wp = pad_dims(*kw["grid_hw"])
+    _, _, groups = draw_cuda._splat_terms(scal, p1, vl, **kw)
+    groups = [(chans.double(), ch0, inv_w.double(),
+               tuple(t.double() for t in ys), tuple(t.double() for t in xs))
+              for chans, ch0, inv_w, ys, xs in groups]
+    acc = torch.zeros(draw_cuda.N_CHAN * hp * wp, dtype=torch.float64,
+                      device=p1.device)
+    return draw_cuda._add_boxes(acc, groups, hp, wp).reshape(-1, hp, wp)
+
+
+def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
+                       grid_hw, pscale, p0=None, rgba=None, exact=False):
+    """K2 on one sorted stream in every variant (words the stream lacks
+    made up: p0 by `p0_words`, rgba8 seeded), each within 1e-5 of each
+    channel's max of `splat_plain`. Prints the partition the kernels ran
+    on the stream's own variant (`draw_cuda.splat_planned`), its tile
+    ranges held to `torch.searchsorted`: rows a key tile and an output
+    tile's weighted source rows (max, median), the split tiles and the
+    samples the stray pass added. With `exact`, the
+    stream's own variant also within 1e-5 of each channel's max of
+    `exact_splat`, the plain version's distance from it printed beside.
+    Returns `({variant: max |d|}, strays)`."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    n = p1.numel()
+    p0_w = p0 if p0 is not None else p0_words(scal, p1, vl, grid_hw, pscale)
+    rgba_w = rgba if rgba is not None else torch.as_tensor(
+        np.random.default_rng(9).integers(0, 1 << 31, n).astype(np.int32),
+        device=p1.device)
+    kw = dict(idx_bits=idx_bits, samples=samples, grid_hw=grid_hw,
+              pscale=pscale)
+    errs = {}
+    for name, v_p0, v_rgba in (("splat", None, None),
+                               ("splat_rgba", None, rgba_w),
+                               ("splat_p0_rgba", p0_w, rgba_w)):
+        want = draw_cuda.splat_plain(scal, p1, vl, p0=v_p0, rgba=v_rgba,
+                                     **kw_plain(kw))
+        got = draw_cuda.splat(scal, keym_s, p1, vl, p0=v_p0, rgba=v_rgba,
+                              **kw)
+        errs[name] = within_channel_max(f"{name} ({label})", got, want)
+        del got, want
+    _, info, queue = draw_cuda.splat_planned(
+        scal, keym_s, p1, vl, p0=p0, rgba=rgba, **kw)
+    info = info.reshape(-1, draw_cuda.SPLAT_INFO)
+    # The plan's searches: each tile's own rows, from its first to the
+    # next tile's.
+    starts = torch.searchsorted(
+        keym_s >> idx_bits, torch.arange(info.shape[0] + 1, device=p1.device,
+                                         dtype=torch.int32), out_int32=True)
+    if not (torch.equal(info[:, 4], starts[:-1])
+            and torch.equal(info[:, 5], starts[1:])):
+        fail(f"K2 ({label}): the plan's tile ranges differ from "
+             "torch.searchsorted of the sorted keys' tiles")
+    rows = torch.diff(starts).float()
+    work = info[:, 7].float()
+    chunk = draw_cuda.split_chunk(n)
+    split = (info[:, 6] > 1).sum().item()
+    queued, strays = queue[:2].tolist()
+    if queued > draw_cuda.queue_cap(n, chunk) or (split == 0) != (queued == 0):
+        fail(f"K2 ({label}): {queued} parts queued for {split} split tiles "
+             f"(room for {draw_cuda.queue_cap(n, chunk)})")
+    print(f"  K2 on the {label} ({n} rows, gather bits {idx_bits}): every "
+          f"variant within 1e-5 of each channel's max of the plain version "
+          f"(max |d| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"); rows a key tile max {rows.max().item():.0f}, median "
+          f"{rows.median().item():.0f}; an output tile's weighted source "
+          f"rows (sixteenths) max {work.max().item():.0f}, median "
+          f"{work.median().item():.0f}, {split} of {info.shape[0]} tiles "
+          f"split (> {chunk}) into {queued} parts; {strays} of "
+          f"{samples * n} samples stray")
+    if exact:
+        native = dict(kw_plain(kw), p0=p0, rgba=rgba)
+        ref = exact_splat(scal, p1, vl, **native)
+        scale = ref.abs().reshape(ref.shape[0], -1).amax(dim=1)
+
+        def rel(a):
+            d = (a.double() - ref).abs().reshape(ref.shape[0], -1)
+            return (d.amax(dim=1) / scale).max().item()
+
+        got = rel(draw_cuda.splat(scal, keym_s, p1, vl, idx_bits=idx_bits,
+                                  **native))
+        plain = rel(draw_cuda.splat_plain(scal, p1, vl, **native))
+        if got > 1e-5:
+            fail(f"K2 ({label}) against the float64 sum: {got:.3e} of a "
+                 "channel's max")
+        print(f"    against a float64 sum of the same deposits: K2 within "
+              f"{got:.3e} of each channel's max, the plain version "
+              f"{plain:.3e}")
+        del ref
+    return errs, strays
+
+
 def check_config2_kernels():
-    """K1-K5 at config-2 shapes: {name: dict(max_abs_err, ms, plain_ms,
-    bound_ms, bound_by, library_ms)}."""
+    """K1-K5 at config-2 shapes: {name: dict(max_abs_err, ms, call_ms,
+    plain_ms, bound_ms, bound_by, library_ms)}."""
     from tendrils_tpu_torch.ops import draw_cuda, gather_cuda
     from tendrils_tpu_torch.ops.tile_geom import pad_dims
     dev = torch.device("cuda")
@@ -284,14 +485,8 @@ def check_config2_kernels():
     pscale, scal = s["pscale"], s["scal"]
     out = {}
 
-    def rec(name, err, ms, plain_ms, nbytes, ops, library_ms=None):
-        b, by = bound(nbytes, ops)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by, library_ms=library_ms)
-        print(f"  {name}: max |d| {err:.3e}; {ms:.4f} ms (plain "
-              f"{plain_ms:.4f} ms, bound {b:.4f} ms by {by}"
-              + ("" if library_ms is None
-                 else f", library {library_ms:.4f} ms") + ")")
+    def rec(name, err, fn, plain_fn, nbytes, ops, library_fn=None):
+        timed_row(out, name, err, fn, plain_fn, nbytes, ops, library_fn)
 
     # K1: integer words, bit-exact. Reads p1_pix, vel, live, idx (24 B a
     # row) and the scalars, writes 3 words (12 B); ~60 operations a row.
@@ -301,25 +496,20 @@ def check_config2_kernels():
     for name, a, b in zip(("keym", "p1", "vl"), got, want):
         if not torch.equal(a, b):
             fail(f"pack {name}: {(a != b).sum().item()} words differ")
-    rec("pack", 0.0,
-        median_ms(lambda: draw_cuda.pack(*s["pack_args"], **kw), 50),
-        median_ms(lambda: draw_cuda.pack_plain(*s["pack_args"], **kw), 10),
+    rec("pack", 0.0, lambda: draw_cuda.pack(*s["pack_args"], **kw),
+        lambda: draw_cuda.pack_plain(*s["pack_args"], **kw),
         36 * n + 128, 60 * n)
 
-    # K2 on the sorted stream. Reads p1, vl (8 B a row), writes the padded
-    # 11-channel accumulator once; each live sample adds its box footprint
-    # (a width-W box covers ceil(W) + 1 texels an axis but where it lies on
-    # texel edges) at 3 operations a deposit, plus ~80 to derive it.
+    # K2 on the sorted stream (gather mode 1), in every variant; timed as
+    # the resident frame runs it.
     p1_s, vl_s = s["p1_s"], s["vl_s"]
-    kw = dict(samples=2, grid_hw=(h, w), pscale=pscale)
-    acc = draw_cuda.splat(scal, p1_s, vl_s, **kw)
-    ref = draw_cuda.splat_plain(scal, p1_s, vl_s, **kw)
-    live_samples = 2 * ((vl_s >> 30) & 1).sum().item()
-    deposits = live_samples * ((5 + 1) ** 2 * 5 + (1 + 1) ** 2 * 6)
-    rec("splat", within_channel_max("splat", acc, ref),
-        median_ms(lambda: draw_cuda.splat(scal, p1_s, vl_s, **kw), 20),
-        median_ms(lambda: draw_cuda.splat_plain(scal, p1_s, vl_s, **kw), 3),
-        8 * n + 11 * hp * wp * 4 + 128, 3 * deposits + 80 * live_samples)
+    args = (scal, s["keym_s"], p1_s, vl_s)
+    kw = dict(idx_bits=20, samples=2, grid_hw=(h, w), pscale=pscale)
+    acc = draw_cuda.splat(*args, **kw)
+    errs, _ = check_splat_stream("seeded config-2 stream", *args, **kw)
+    rec("splat", errs["splat"], lambda: draw_cuda.splat(*args, **kw),
+        lambda: draw_cuda.splat_plain(scal, *args[2:], **kw_plain(kw)),
+        *splat_work(s["keym_s"], vl_s, hp, wp, 3))
 
     # K3: reads the accumulator's content region (11 channels), the flow
     # and the view, writes both grids and eff: 116 B a pixel.
@@ -332,8 +522,8 @@ def check_config2_kernels():
     res = draw_cuda.resolve(*args, want_eff=True)
     rec("resolve",
         close("resolve", res, draw_cuda.resolve_plain(*args, want_eff=True)),
-        median_ms(lambda: draw_cuda.resolve(*args, want_eff=True), 50),
-        median_ms(lambda: draw_cuda.resolve_plain(*args, want_eff=True), 10),
+        lambda: draw_cuda.resolve(*args, want_eff=True),
+        lambda: draw_cuda.resolve_plain(*args, want_eff=True),
         116 * h * w, 40 * h * w)
 
     # K4: reads p1, npx, npy, vl (16 B a row) and the texels its rows
@@ -346,9 +536,8 @@ def check_config2_kernels():
     rec("gather_reconstruct",
         close("gather_reconstruct", gather_cuda.gather_reconstruct_p1(
             *args, **kw), gather_cuda.gather_reconstruct_plain(*args, **kw)),
-        median_ms(lambda: gather_cuda.gather_reconstruct_p1(*args, **kw), 50),
-        median_ms(lambda: gather_cuda.gather_reconstruct_plain(*args, **kw),
-                  10),
+        lambda: gather_cuda.gather_reconstruct_p1(*args, **kw),
+        lambda: gather_cuda.gather_reconstruct_plain(*args, **kw),
         56 * n + 8 * texels, 40 * n)
 
     # K5 at the particles' positions, plus points on and past the edges:
@@ -373,11 +562,13 @@ def check_config2_kernels():
     rec("bilinear_gather",
         close("bilinear_gather", [got],
               [gather_cuda.bilinear_gather_plain(eff, x, y)]),
-        median_ms(lambda: gather_cuda.bilinear_gather(eff, x, y), 50),
-        median_ms(lambda: gather_cuda.bilinear_gather_plain(eff, x, y), 10),
+        lambda: gather_cuda.bilinear_gather(eff, x, y),
+        lambda: gather_cuda.bilinear_gather_plain(eff, x, y),
         n * (8 + 2 * 4) + 2 * 4 * touched_texels(x, y, h, w), 20 * n,
-        library_ms=median_ms(library, 50))
+        library_fn=library)
     print(f"  (grid_sample against K5: max |d| {lib_err:.3e})")
+    against_library("bilinear_gather",
+                    lambda: gather_cuda.bilinear_gather(eff, x, y), library)
     return out
 
 
@@ -393,12 +584,8 @@ def check_config4_kernels():
     s = sorted_streams(n, (h, w), sl, 1)
     out = {}
 
-    def rec(name, err, ms, plain_ms, nbytes, ops, label=""):
-        b, by = bound(nbytes, ops)
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b, bound_by=by, library_ms=None)
-        print(f"  {name}{label}: max |d| {err:.3e}; {ms:.4f} ms (plain "
-              f"{plain_ms:.4f} ms, bound {b:.4f} ms by {by})")
+    def rec(name, err, fn, plain_fn, nbytes, ops, label=""):
+        timed_row(out, name, err, fn, plain_fn, nbytes, ops, label=label)
 
     # K6, bit-exact (--fmad=false): reads npx, npy, vl (12 B a row),
     # writes particles and previous (32 B a row); ~10 operations a row.
@@ -410,8 +597,8 @@ def check_config4_kernels():
             fail(f"reconstruct_resident: {(a != b).sum().item()} values "
                  "differ")
     rec("reconstruct_resident", 0.0,
-        median_ms(lambda: draw_cuda.reconstruct_resident(*args), 50),
-        median_ms(lambda: draw_cuda.reconstruct_resident_plain(*args), 10),
+        lambda: draw_cuda.reconstruct_resident(*args),
+        lambda: draw_cuda.reconstruct_resident_plain(*args),
         44 * n, 10 * n)
 
     # K8 from the decayed flow: reads p1 (4 B a row) and the touched
@@ -429,10 +616,10 @@ def check_config4_kernels():
         fail("K4 != K8 + K6")
     texels = touched_texels(*p1_coords(s["p1_s"], inv_p, h, w), h, w)
     rec("gather_keyed_p1", err,
-        median_ms(lambda: gather_cuda.bilinear_gather_keyed_p1(
-            eff, s["p1_s"], inv_p=inv_p), 50),
-        median_ms(lambda: gather_cuda.bilinear_gather_keyed_p1_plain(
-            eff, s["p1_s"], inv_p=inv_p), 10),
+        lambda: gather_cuda.bilinear_gather_keyed_p1(
+            eff, s["p1_s"], inv_p=inv_p),
+        lambda: gather_cuda.bilinear_gather_keyed_p1_plain(
+            eff, s["p1_s"], inv_p=inv_p),
         12 * n + 8 * texels, 20 * n)
     print("  K4 == K8 + K6 bit for bit")
 
@@ -470,18 +657,21 @@ def check_config4_kernels():
                       for dx in (0, 1) for dy in (0, 1))
         # The pointer case, the config-4 path's, is recorded last.
         rec("splat_points", err,
-            median_ms(lambda: splat_cuda.splat_accumulate(*sargs), 50),
-            median_ms(lambda: splat_cuda.splat_accumulate_plain(*sargs), 10),
+            lambda: splat_cuda.splat_accumulate(*sargs),
+            lambda: splat_cuda.splat_accumulate_plain(*sargs),
             x.numel() * 28 + 6 * h * w * 4, 12 * corners,
             label=f" ({label}, M = {x.numel()})")
     return out
 
 
-def classic_streams(n, grid_hw, sl, seed, exact_p0=True):
+def classic_streams(n, grid_hw, sl, seed, exact_p0=True, jump=0.0,
+                    gather=None):
     """A draw's inputs with per-particle colours (`mapped`, a textured
-    colour map's lookup times colorMapAlpha) packed (K1) and sorted: with
-    `exact_p0` the classic draw's (the p0 stream, row ids arange(N)),
-    else the resident frame's (key_recon, permuted ids)."""
+    colour map's lookup times colorMapAlpha) packed (K1, in `gather` mode:
+    1 by default) and sorted: with `exact_p0` the classic draw's (the p0
+    stream, row ids arange(N)), else the resident frame's (key_recon,
+    permuted ids). `jump`: the share of rows whose p0 lies anywhere on the
+    grid, as after a respawn (segments across tiles)."""
     from tendrils_tpu_torch.ops import draw_cuda
     dev = torch.device("cuda")
     h, w = grid_hw
@@ -496,6 +686,10 @@ def classic_streams(n, grid_hw, sl, seed, exact_p0=True):
     p1 = torch.stack([(pos_t[0] * vs_t[0] * 0.5 + 0.5) * w,
                       (pos_t[1] * vs_t[1] * 0.5 + 0.5) * h], dim=-1)
     p0 = (p1 - vel_t.T * vs_t * scale).contiguous() if exact_p0 else None
+    if jump:
+        far = t(rng.random(n) < jump)
+        p0[far] = t(rng.uniform(0, 1, (n, 2)).astype(np.float32)
+                    * np.float32([w, h]))[far]
     mapped = t(rng.uniform(0.0, 1.0, (4, n)).astype(np.float32)
                * np.float32(0.4))
     pscale = draw_cuda.pos_scale_for(grid_hw)
@@ -506,12 +700,14 @@ def classic_streams(n, grid_hw, sl, seed, exact_p0=True):
         torch.zeros(2, device=dev) if exact_p0 else vs_t, dev)
     pack_args = (scal, p1, vel_t, t(live), t(idx))
     pack_kw = dict(grid_hw=grid_hw, pscale=pscale, p0_pix=p0, pos=pos_t,
-                   mapped=mapped)
+                   mapped=mapped, gather=gather)
     words = draw_cuda.pack(*pack_args, **pack_kw)
-    _, perm = torch.sort(words[0])
+    keym_s, perm = torch.sort(words[0])
     return dict(scal=scal, pack_args=pack_args, pack_kw=pack_kw, words=words,
-                pscale=pscale, sorted=[None if a is None else a[perm]
-                                       for a in words])
+                pscale=pscale, bits=draw_cuda._idx_bits(
+                    1 if gather is None else gather),
+                sorted=[keym_s] + [None if a is None else a[perm]
+                                   for a in words[1:]])
 
 
 def check_variant_pack_splat(name, n, grid_hw, s, in_bytes, out):
@@ -529,32 +725,21 @@ def check_variant_pack_splat(name, n, grid_hw, s, in_bytes, out):
                                           and not torch.equal(a, b)):
             fail(f"pack_{name} {field}: words differ")
     words = sum(a is not None for a in got)
-    b, by = bound(in_bytes * n + 4 * words * n + 128, 130 * n)
-    out["pack_" + name] = dict(
-        max_abs_err=0.0, bound_ms=b, bound_by=by, library_ms=None,
-        ms=median_ms(lambda: draw_cuda.pack(*s["pack_args"],
-                                            **s["pack_kw"]), 50),
-        plain_ms=median_ms(lambda: draw_cuda.pack_plain(
-            *s["pack_args"], **s["pack_kw"]), 10))
+    timed_row(out, "pack_" + name, 0.0,
+              lambda: draw_cuda.pack(*s["pack_args"], **s["pack_kw"]),
+              lambda: draw_cuda.pack_plain(*s["pack_args"], **s["pack_kw"]),
+              in_bytes * n + 4 * words * n + 128, 130 * n)
     keym_s, p1_s, vl_s, p0_s, rgba_s = s["sorted"]
-    kw = dict(samples=2, grid_hw=grid_hw, pscale=s["pscale"], p0=p0_s,
-              rgba=rgba_s)
-    args = (s["scal"], p1_s, vl_s)
+    kw = dict(idx_bits=s["bits"], samples=2, grid_hw=grid_hw,
+              pscale=s["pscale"], p0=p0_s, rgba=rgba_s)
+    args = (s["scal"], keym_s, p1_s, vl_s)
     err = within_channel_max(f"splat_{name}", draw_cuda.splat(*args, **kw),
-                             draw_cuda.splat_plain(*args, **kw))
-    live_samples = 2 * ((vl_s >> 30) & 1).sum().item()
-    deposits = live_samples * ((5 + 1) ** 2 * 5 + (1 + 1) ** 2 * 6)
-    b, by = bound(4 * (words - 1) * n + 11 * hp * wp * 4 + 128,
-                  3 * deposits + 40 * live_samples)
-    out["splat_" + name] = dict(
-        max_abs_err=err, bound_ms=b, bound_by=by, library_ms=None,
-        ms=median_ms(lambda: draw_cuda.splat(*args, **kw), 20),
-        plain_ms=median_ms(lambda: draw_cuda.splat_plain(*args, **kw), 3))
-    for k in ("pack_" + name, "splat_" + name):
-        r = out[k]
-        print(f"  {k}: max |d| {r['max_abs_err']:.3e}; {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"by {r['bound_by']})")
+                             draw_cuda.splat_plain(s["scal"], p1_s, vl_s,
+                                                   **kw_plain(kw)))
+    timed_row(out, "splat_" + name, err, lambda: draw_cuda.splat(*args, **kw),
+              lambda: draw_cuda.splat_plain(s["scal"], p1_s, vl_s,
+                                            **kw_plain(kw)),
+              *splat_work(keym_s, vl_s, hp, wp, words))
 
 
 def check_slice3_kernels():
@@ -590,19 +775,14 @@ def check_slice3_kernels():
     if d.max().item() > 1:
         fail(f"gather_keyed_q15: a q15 field differs by {d.max().item()}")
     texels = touched_texels(*p1_coords(p1_s, inv_p, h, w), h, w)
-    b, by = bound(8 * n + 8 * texels, 30 * n)
-    out["gather_keyed_q15"] = dict(
-        max_abs_err=float(d.max().item()), bound_ms=b, bound_by=by,
-        library_ms=None,
-        ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed_q15(
-            eff, p1_s, inv_sl, inv_p=inv_p), 50),
-        plain_ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed_q15_plain(
-            eff, p1_s, inv_sl, inv_p=inv_p), 10))
     print(f"  gather_keyed_q15: {(k7 != ref).sum().item()} of {n} words "
-          f"differ, each q15 field by <= {d.max().item()}; "
-          f"{out['gather_keyed_q15']['ms']:.4f} ms (plain "
-          f"{out['gather_keyed_q15']['plain_ms']:.4f} ms, bound {b:.4f} ms "
-          f"by {by})")
+          f"differ, each q15 field by <= {d.max().item()}")
+    timed_row(out, "gather_keyed_q15", float(d.max().item()),
+              lambda: gather_cuda.bilinear_gather_keyed_q15(
+                  eff, p1_s, inv_sl, inv_p=inv_p),
+              lambda: gather_cuda.bilinear_gather_keyed_q15_plain(
+                  eff, p1_s, inv_sl, inv_p=inv_p),
+              8 * n + 8 * texels, 30 * n)
 
     # K12 at the same rows' padded coords (clamped as the draw's aux
     # contract has them): reads xs, ys (8 B a row) and the touched texels,
@@ -624,19 +804,15 @@ def check_slice3_kernels():
     lib_err = (library()[0, :, 0] - k12).abs().max().item()
     if lib_err > 1e-3 * eff.abs().max().item():
         fail(f"gather_keyed vs grid_sample: max |d| {lib_err:.3e}")
-    b, by = bound(16 * n + 8 * touched_texels(x, y, h, w), 20 * n)
-    out["gather_keyed"] = dict(
-        max_abs_err=err, bound_ms=b, bound_by=by,
-        ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed(eff, xs, ys),
-                     50),
-        plain_ms=median_ms(lambda: gather_cuda.bilinear_gather_keyed_plain(
-            eff, xs, ys), 10),
-        library_ms=median_ms(library, 50))
-    r = out["gather_keyed"]
-    print(f"  gather_keyed: max |d| {err:.3e}; {r['ms']:.4f} ms (plain "
-          f"{r['plain_ms']:.4f} ms, bound {b:.4f} ms by {by}, library "
-          f"{r['library_ms']:.4f} ms; grid_sample against K12: max |d| "
-          f"{lib_err:.3e})")
+    print(f"  (grid_sample against K12: max |d| {lib_err:.3e})")
+    timed_row(out, "gather_keyed", err,
+              lambda: gather_cuda.bilinear_gather_keyed(eff, xs, ys),
+              lambda: gather_cuda.bilinear_gather_keyed_plain(eff, xs, ys),
+              16 * n + 8 * touched_texels(x, y, h, w), 20 * n,
+              library_fn=library)
+    against_library("gather_keyed",
+                    lambda: gather_cuda.bilinear_gather_keyed(eff, xs, ys),
+                    library)
 
     # The textured resident frame's variants at config 4: K1 reads p1,
     # vel, pos (8 B each), mapped (16 B), live, idx (4 B each) a row.
@@ -1010,31 +1186,50 @@ def run_paths_b_c():
     return total
 
 
-def capture_merge_inputs(eng, frames=3):
-    """The merge reorder's inputs on a real resident frame: the engine
-    (merge on) runs `frames` frames, then one more whose
-    `reorder_cuda.merge_reorder` call is recorded (the script wraps it in
-    place for that frame and restores it; the package never does)."""
-    from tendrils_tpu_torch.ops import reorder_cuda
-    eng.config = dataclasses.replace(eng.config, merge_reorder=True)
-    eng.reseed_derived()
+def capture_frame(eng, frames, *targets):
+    """Run `frames` frames of `eng`, then one more whose calls of each
+    `(owner, name)` of `targets` are recorded, the last call of each:
+    `{name: (args, kwargs)}`, tensors cloned (the script wraps them in
+    place for that frame and restores them; the package never does)."""
     for _ in range(frames):
         eng.frame()
     got = {}
-    orig = reorder_cuda.merge_reorder
 
-    def record(key, prev_key, prev_hist, **kw):
-        got.update(key=key.clone(), prev_key=prev_key.clone(),
-                   prev_hist=prev_hist.clone(), **kw)
-        return orig(key, prev_key, prev_hist, **kw)
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
 
-    reorder_cuda.merge_reorder = record
+    def wrap(name, fn):
+        def run(*a, **kw):
+            got[name] = ([clone(x) for x in a],
+                         {k: clone(v) for k, v in kw.items()})
+            return fn(*a, **kw)
+        return run
+
+    origs = [(owner, name, getattr(owner, name)) for owner, name in targets]
+    for owner, name, fn in origs:
+        setattr(owner, name, wrap(name, fn))
     try:
         eng.frame()
     finally:
-        reorder_cuda.merge_reorder = orig
+        for owner, name, fn in origs:
+            setattr(owner, name, fn)
     torch.cuda.synchronize()
     return got
+
+
+def capture_merge_inputs(eng, frames=3):
+    """The merge reorder's and K2's inputs on a real resident frame: the
+    engine (merge on) runs `frames` frames, then one more whose
+    `reorder_cuda.merge_reorder` and `draw_cuda.splat` calls are recorded
+    (`capture_frame`). Returns `(merge inputs, splat (args, kwargs))`."""
+    from tendrils_tpu_torch.ops import draw_cuda, reorder_cuda
+    eng.config = dataclasses.replace(eng.config, merge_reorder=True)
+    eng.reseed_derived()
+    got = capture_frame(eng, frames, (reorder_cuda, "merge_reorder"),
+                        (draw_cuda, "splat"))
+    (key, prev_key, prev_hist), kw = got["merge_reorder"]
+    return (dict(key=key, prev_key=prev_key, prev_hist=prev_hist, **kw),
+            got["splat"])
 
 
 def check_reorder_at(label, inp, out=None):
@@ -1091,37 +1286,24 @@ def check_reorder_at(label, inp, out=None):
         m = key != prev
         return key[m], prev[m], ar[m]
 
-    ms = dict(
-        compact=median_ms(lambda: ro.compact(key, prev, base_b), 50),
-        compact_plain=median_ms(lambda: ro.compact_plain(key, prev, base_b),
-                                10),
-        mask_select=median_ms(mask_select, 50),
-        apply=median_ms(lambda: ro.merge_apply(
-            *args, idx_bits=kw["idx_bits"]), 50),
-        apply_plain=median_ms(lambda: ro.merge_apply_plain(
-            *args, idx_bits=kw["idx_bits"]), 10),
-        merge=median_ms(lambda: ro.merge_reorder(key, prev, hist, **kw), 20),
-        sort=median_ms(lambda: torch.sort(key), 20))
+    timed = {label_: time_calls(fn, reps)[0] for label_, fn, reps in (
+        ("merge", lambda: ro.merge_reorder(key, prev, hist, **kw), REPS),
+        ("sort", lambda: torch.sort(key), REPS))}
     print(f"  {label}: {k} of {n} rows churned ({k / n:.2%}); "
-          f"reorder_compact {ms['compact']:.4f} ms (plain "
-          f"{ms['compact_plain']:.4f}, mask select {ms['mask_select']:.4f}),"
-          f" reorder_apply {ms['apply']:.4f} ms (plain "
-          f"{ms['apply_plain']:.4f}); bit-exact, the all-churn seed ok false "
-          f"on both")
-    print(f"  {label}: the whole merge_reorder (K10, censuses, C sort, K11) "
-          f"{ms['merge']:.4f} ms; the flat torch.sort of the same keys "
-          f"{ms['sort']:.4f} ms")
+          f"reorder_compact and reorder_apply bit-exact, the all-churn seed "
+          f"ok false on both; device ms of the whole merge_reorder (K10, "
+          f"censuses, C sort, K11) {timed['merge']:.4f}, of the flat "
+          f"torch.sort of the same keys {timed['sort']:.4f}")
     if out is not None:
-        b10 = bound(8 * n + 4 * nb + 12 * cap, 8 * n)
-        b11 = bound(16 * n + 8 * k + 8 * t + 8 * nb, 8 * n + 4 * k)
-        out["reorder_compact"] = dict(
-            max_abs_err=0.0, ms=ms["compact"], plain_ms=ms["compact_plain"],
-            bound_ms=b10[0], bound_by=b10[1], library_ms=ms["mask_select"])
-        out["reorder_apply"] = dict(
-            max_abs_err=0.0, ms=ms["apply"], plain_ms=ms["apply_plain"],
-            bound_ms=b11[0], bound_by=b11[1], library_ms=None)
-        print(f"  reorder_compact bound {b10[0]:.4f} ms by {b10[1]}, "
-              f"reorder_apply bound {b11[0]:.4f} ms by {b11[1]}")
+        timed_row(out, "reorder_compact", 0.0,
+                  lambda: ro.compact(key, prev, base_b),
+                  lambda: ro.compact_plain(key, prev, base_b),
+                  8 * n + 4 * nb + 12 * cap, 8 * n, library_fn=mask_select)
+        timed_row(out, "reorder_apply", 0.0,
+                  lambda: ro.merge_apply(*args, idx_bits=kw["idx_bits"]),
+                  lambda: ro.merge_apply_plain(*args,
+                                               idx_bits=kw["idx_bits"]),
+                  16 * n + 8 * k + 8 * t + 8 * nb, 8 * n + 4 * k)
     return k / n
 
 
@@ -1145,32 +1327,58 @@ def check_gather_mode_packs(out):
             if (a is None) != (b is None) or (a is not None
                                               and not torch.equal(a, b)):
                 fail(f"{name} {field}: words differ")
-        b, by = bound((in_b + out_b) * n + 128, 60 * n)
-        out[name] = dict(
-            max_abs_err=0.0, bound_ms=b, bound_by=by, library_ms=None,
-            ms=median_ms(lambda: draw_cuda.pack(*args, **kw), 50),
-            plain_ms=median_ms(lambda: draw_cuda.pack_plain(*args, **kw),
-                               10))
-        r = out[name]
-        print(f"  {name}: bit-exact; {r['ms']:.4f} ms (plain "
-              f"{r['plain_ms']:.4f} ms, bound {b:.4f} ms by {by})")
+        print(f"  {name}: bit-exact")
+        timed_row(out, name, 0.0, lambda: draw_cuda.pack(*args, **kw),
+                  lambda: draw_cuda.pack_plain(*args, **kw),
+                  (in_b + out_b) * n + 128, 60 * n)
 
 
 def check_merge_kernels():
     """Phase 3's merge part: K10 and K11 on the merge inputs of real
-    resident frames at config 3 (recorded) and config 2 (printed), and the
-    K1 mode-2/3 variants."""
+    resident frames at config 3 (recorded) and config 2 (printed), K2 on
+    the config-3 frame's sorted stream, and the K1 mode-2/3 variants."""
     from tendrils_tpu_torch import models
     out = {}
     for name, label in (("4m-respawn-stress", "config 3, 4,194,304 rows, "
                          "gather mode 3"),
                         ("1m-flow", "config 2, 1,048,576 rows, gather "
                          "mode 1")):
-        inp = capture_merge_inputs(models.build(name))
+        inp, (args, kw) = capture_merge_inputs(models.build(name))
         check_reorder_at(label, inp, out if name.startswith("4m") else None)
         del inp
+        if name.startswith("4m"):
+            merged = not torch.equal(args[1], torch.sort(args[1])[0])
+            check_splat_stream(
+                "sorted stream of a real config-3 frame (keys in "
+                + ("the merge's order" if merged else "the flat sort's")
+                + ")", *args, **kw)
+        del args, kw
     check_gather_mode_packs(out)
     return out
+
+
+def check_splat_streams():
+    """Phase 3's K2 part beyond the seeded streams: the sorted stream of a
+    real config-2 frame after 30 frames (flow feedback has clustered the
+    particles), and a classic p0 stream at config 2 in gather mode 2 with
+    a twentieth of its p0 anywhere on the grid (segments across tiles:
+    strays)."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import draw_cuda
+    args, kw = capture_frame(models.build("1m-flow"), 30,
+                             (draw_cuda, "splat"))["splat"]
+    check_splat_stream("sorted stream of a real config-2 frame after 30 "
+                       "frames", *args, **kw, exact=True)
+    del args, kw
+    c = classic_streams(1 << 20, (1080, 1920), 0.01, 10, jump=0.05,
+                        gather=2)
+    keym_s, p1_s, vl_s, p0_s, rgba_s = c["sorted"]
+    _, strays = check_splat_stream(
+        "classic p0 stream with long segments", c["scal"], keym_s, p1_s,
+        vl_s, idx_bits=c["bits"], samples=2, grid_hw=(1080, 1920),
+        pscale=c["pscale"], p0=p0_s, rgba=rgba_s)
+    if strays == 0:
+        fail("K2: the long-segment stream has no strays")
 
 
 def record_merges(run):
@@ -1469,6 +1677,7 @@ def run_config5_and_mode2(eng3):
 
 
 def main():
+    t_start = time.perf_counter()
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1482,15 +1691,21 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
-    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.ops import cuda_lib, draw_cuda
     if "jax" in sys.modules:
         fail("the port imported jax")
+    if draw_cuda.SPLAT_LAUNCHES != K2:
+        fail(f"K2 launches {draw_cuda.SPLAT_LAUNCHES} kernels a call, the "
+             f"path tables count {K2}")
 
     t0 = time.perf_counter()
     cuda_lib.library()
     built = cuda_lib.build_seconds
+    release = subprocess.run([cuda_lib._nvcc(), "--version"],
+                             capture_output=True, text=True).stdout
     print(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {'cached' if built is None else f'{built:.1f} s'})")
+          f"(nvcc {'cached' if built is None else f'{built:.1f} s'}; "
+          f"{release.strip().splitlines()[-1]})")
 
     print("[3] kernels vs plain versions at config-2 shapes:")
     checks = check_config2_kernels()
@@ -1498,8 +1713,10 @@ def main():
     checks.update(check_config4_kernels())
     print("[3] the K1/K2 variants with p0 and rgba8 streams, K7 and K12:")
     checks.update(check_slice3_kernels())
-    print("[3] the merge reorder (K10, K11) on real frames' inputs, and K1 "
-          "in gather modes 3 and 2 at config-3 shapes:")
+    print("[3] K2 on real and long-segment streams:")
+    check_splat_streams()
+    print("[3] the merge reorder (K10, K11) and K2 on real frames' inputs, "
+          "and K1 in gather modes 3 and 2 at config-3 shapes:")
     checks.update(check_merge_kernels())
 
     eng, launches2 = run_config2()
@@ -1520,13 +1737,14 @@ def main():
 
     runs = (launches2, launches4, launches_a, launches_bc, launches_m2,
             launches_m3, launches_big)
+    print(f"[11] every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(k, 0) for r in runs),
          **{key: checks[k][key] for key in (
-             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}}
+             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")}}
         for k, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

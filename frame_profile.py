@@ -19,8 +19,9 @@ readings of the same frame:
 
   1. wall ms/frame of the plain loop (the end-to-end number);
   2. a `torch.profiler` trace of `--frames` frames: device time by kernel
-     name, launches and copies per frame, and the device's busy share of
-     the wall time (kernel, copy and fill time over the traced span);
+     name, launches and copies per frame, K2's three kernels together, and
+     the device's busy share of the wall time (kernel, copy and fill time
+     over the traced span);
   3. each stage alone: the device synchronised before and after it, so
      its wall time is its own host and device time with no overlap. For
      this reading the script wraps the stage functions of the port's
@@ -181,6 +182,13 @@ def main():
     for key, ms in dev.most_common(15):
         print(f"    {ms / n:8.4f} ms/frame  {calls[key] / n:6.1f}/frame  "
               f"{key[:90]}")
+    k2 = {k: sum(ms for key, ms in dev.items() if f"splat_{k}_kernel" in key)
+          for k in ("plan", "tile", "stray")}
+    k2_calls = sum(c for key, c in calls.items()
+                   if any(f"splat_{k}_kernel" in key for k in k2))
+    print(f"    {sum(k2.values()) / n:8.4f} ms/frame  {k2_calls / n:6.1f}/frame"
+          f"  K2 splat in all (plan {k2['plan'] / n:.4f}, tile pass "
+          f"{k2['tile'] / n:.4f}, stray pass {k2['stray'] / n:.4f})")
 
     acc = collections.Counter()
     patched = _stage_timers(acc)

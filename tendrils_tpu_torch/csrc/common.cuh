@@ -17,6 +17,10 @@ constexpr int TILE_H = 16;
 constexpr int TILE_W = 256;
 constexpr int PAD_LO_H = 16;
 constexpr int PAD_LO_W = 256;
+// A sample keyed by a tile fits when its footprint lies in the tile's
+// REGION_H x REGION_W region, from the tile's origin (K2's tile pass).
+constexpr int REGION_H = 32;
+constexpr int REGION_W = 384;
 constexpr float INERT = -1.0e6f;
 constexpr float KMAX_WIDTH = 8.0f;
 constexpr float COLOR_MAX = 4.0f;

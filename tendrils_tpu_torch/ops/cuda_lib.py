@@ -42,7 +42,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tt_pack": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P,
                 _P, _P, _P, _P, _P],
-    "tt_splat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P],
+    "tt_splat_plan": [_P, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
+    "tt_splat_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _P, _P, _I, _P, _P],
+    "tt_splat_strays": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _F, _P, _P, _P],
     "tt_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tt_gather_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P,
                               _P, _P, _P],

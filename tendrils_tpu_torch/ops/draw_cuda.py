@@ -18,9 +18,12 @@ the sort; 2 the tile alone, the ids a stream of their own:
                resident frames that carry the previous order
                (`reorder=`), the merge reorder (`reorder_cuda`: K10, K11),
                falling back to the sort when its guards trip;
-  K2 `splat`   (csrc/splat.cu)   per (segment, sample): box-footprint
-                                 deposits into the padded 11-channel
-                                 accumulator;
+  K2 `splat`   (csrc/splat.cu)   box-footprint deposits into the padded
+                                 11-channel accumulator: per output tile
+                                 (in shared memory) the samples that fit
+                                 their key tile's region, then per
+                                 (segment, sample) the strays (global
+                                 atomics); three launches;
   K3 `resolve` (csrc/resolve.cu) per pixel: order-independent blend of
                                  both grids, fade, the decayed flow `eff`;
                                  or the XLA resolve tail (`_widen_excess`,
@@ -45,8 +48,8 @@ Each kernel's wrapper takes the plain PyTorch version (`pack_plain`,
 tensors lie on the CPU and launches the kernel when they lie on a CUDA
 device. The packed words, the keys and the sorted order are the
 reference's contracts and match it bit for bit; the accumulator is summed
-in f32 (the TPU's matmul operands are bf16) with float atomics, in
-run-dependent order.
+in f32 (the TPU's matmul operands are bf16) with shared and global float
+atomics, in run-dependent order.
 """
 
 import numpy as np
@@ -326,33 +329,68 @@ def pack_plain(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
 
 # --- K2 splat ----------------------------------------------------------------
 
+# Launches of one `splat` call, each counted under the variant's name: the
+# plan, the tile pass and the stray pass (`csrc/splat.cu`).
+SPLAT_LAUNCHES = 3
+# Words of K2's plan: per output tile (`INFO`) the run starts of its source
+# tiles, its parts and its weighted rows; the queue's head, the counts of
+# queued parts and of strays, before its (tile, part) pairs.
+SPLAT_INFO = 8
+SPLAT_QUEUE_HEAD = 2
 
-def splat(scal, p1, vl, *, samples, grid_hw, pscale, p0=None, rgba=None):
+
+def splat(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw, pscale,
+          p0=None, rgba=None):
     """K2: expand each sorted segment into `samples` deposit points and
-    accumulate both passes' box footprints. `p0`: the sorted p0 words, or
-    None to derive p0 from p1 and the velocity; `rgba`: the sorted rgba8
-    words, or None to compute the colour model of a 1x1 colour map from
-    the scalars. Returns the padded accumulator `f32[N_CHAN, hp, wp]` (the
-    wrapper zeroes it; the kernel adds)."""
-    tensors = [t for t in (scal, p1, vl, p0, rgba) if t is not None]
+    accumulate both passes' box footprints. `keym_s`: the tile-sorted
+    keys, `tile << idx_bits | id` (`_idx_bits`); `p0`: the sorted p0
+    words, or None to derive p0 from p1 and the velocity; `rgba`: the
+    sorted rgba8 words, or None to compute the colour model of a 1x1
+    colour map from the scalars. Returns the padded accumulator `f32[N_CHAN,
+    hp, wp]`, every texel written by the kernels (`csrc/splat.cu`: the
+    plan that finds each output tile's source rows in the sorted keys,
+    the tile pass that adds each sample fitting its key tile's region in
+    shared memory, and the stray pass for the rest)."""
+    tensors = [t for t in (scal, keym_s, p1, vl, p0, rgba) if t is not None]
     if cuda_lib.on_cpu(*tensors):
         return splat_plain(scal, p1, vl, samples=samples, grid_hw=grid_hw,
                            pscale=pscale, p0=p0, rgba=rgba)
+    return splat_planned(scal, keym_s, p1, vl, idx_bits=idx_bits,
+                         samples=samples, grid_hw=grid_hw, pscale=pscale,
+                         p0=p0, rgba=rgba)[0]
+
+
+def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
+                  pscale, p0=None, rgba=None):
+    """`splat`'s three launches on CUDA tensors: `(accum, info, queue)`,
+    the accumulator and the plan it ran (per tile `SPLAT_INFO` words: the
+    run starts of its source tiles above-left, above, left and its own,
+    and the end of its own, at 0-5, its parts at 6, its weighted rows at
+    7; the queue's counts of parts and strays at 0 and 1)."""
     n = p1.shape[0]
     h, w = grid_hw
     hp, wp = pad_dims(h, w)
     cuda_lib.check(scal, "scal", _F32, (32,))
-    cuda_lib.check(p1, "p1", _I32, (n,))
-    cuda_lib.check(vl, "vl", _I32, (n,))
-    for t, name in ((p0, "p0"), (rgba, "rgba")):
+    for t, name in ((keym_s, "keym_s"), (p1, "p1"), (vl, "vl"), (p0, "p0"),
+                    (rgba, "rgba")):
         if t is not None:
             cuda_lib.check(t, name, _I32, (n,))
-    accum = torch.zeros((N_CHAN, hp, wp), dtype=_F32, device=p1.device)
-    cuda_lib.launch("tt_splat", _variant("splat", p0 is not None,
-                                         rgba is not None),
-                    scal, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
-                    float(pscale), accum)
-    return accum
+    tiles_y, tiles_x = splat_tiles(grid_hw)
+    chunk = split_chunk(n)
+    cap = queue_cap(n, chunk)
+    dev = p1.device
+    accum = torch.empty((N_CHAN, hp, wp), dtype=_F32, device=dev)
+    info = torch.empty(SPLAT_INFO * tiles_y * tiles_x, dtype=_I32,
+                       device=dev)
+    queue = torch.empty(SPLAT_QUEUE_HEAD + 2 * cap, dtype=_I32, device=dev)
+    name = _variant("splat", p0 is not None, rgba is not None)
+    cuda_lib.launch("tt_splat_plan", name, keym_s, n, idx_bits, hp, wp,
+                    chunk, info, queue, cap, accum)
+    args = (scal, keym_s, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
+            idx_bits, float(pscale))
+    cuda_lib.launch("tt_splat_tiles", name, *args, info, queue, cap, accum)
+    cuda_lib.launch("tt_splat_strays", name, *args, queue, accum)
+    return accum, info, queue
 
 
 def _scalar_colors(scal, vx, vy, p1x, p1y, grid_hw):
@@ -375,15 +413,13 @@ def _cover(idx, lo, hi):
                        0.0, 1.0)
 
 
-def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
-                rgba=None):
-    """Plain version of K2: the same per-sample arithmetic, deposited with
-    one `index_add_` per footprint offset (<= 9 x 9 offsets, both channel
-    groups and all samples at once)."""
-    cuda_lib.plain_calls[_variant("splat", p0 is not None,
-                                  rgba is not None)] += 1
+def _splat_terms(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
+                 rgba=None):
+    """K2's per-sample arithmetic over all segments and samples at once:
+    `(gx, gy, groups)`, the quantised centres `f32[S, N]` and, for the
+    flow and the view channel group, `(chans [C, S, N], first plane, 1 /
+    width, (lo_y, hi_y, floor lo_y), (lo_x, hi_x, floor lo_x))`."""
     h, w = grid_hw
-    hp, wp = pad_dims(h, w)
     dev = p1.device
     sl = scal[0]
     inv_p = 1.0 / pscale
@@ -436,16 +472,21 @@ def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
         hw = width * 0.5
         lo_y, hi_y = gy + (0.5 - hw), gy + (0.5 + hw)
         lo_x, hi_x = gx + (0.5 - hw), gx + (0.5 + hw)
-        planes = (ch0 + torch.arange(len(chans), device=dev)) * (hp * wp)
-        groups.append((chans, planes[:, None, None], 1.0 / width,
+        groups.append((chans, ch0, 1.0 / width,
                        (lo_y, hi_y, torch.floor(lo_y)),
                        (lo_x, hi_x, torch.floor(lo_x))))
+    return gx, gy, groups
 
-    accum = torch.zeros(N_CHAN * hp * wp, dtype=_F32, device=dev)
+
+def _add_boxes(accum, groups, hp, wp):
+    """Add the box footprints of `groups` (`_splat_terms`) into the flat
+    `f32[N_CHAN * hp * wp]` accumulator with one `index_add_` per
+    footprint offset (<= 9 x 9 offsets, both channel groups and all
+    samples at once)."""
     for oy in range(KSPAN):
         for ox in range(KSPAN):
             index, value = [], []
-            for chans, planes, inv_w, (lo_y, hi_y, r0), (lo_x, hi_x, c0) \
+            for chans, ch0, inv_w, (lo_y, hi_y, r0), (lo_x, hi_x, c0) \
                     in groups:
                 r = r0 + oy
                 c = c0 + ox
@@ -454,12 +495,63 @@ def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
                 ok = (wr > 0) & (wc > 0) & (r >= 0) & (r < hp) \
                     & (c >= 0) & (c < wp)
                 value.append(torch.where(ok, (wr * chans) * wc, 0.0))
+                planes = (ch0 + torch.arange(len(chans), device=r.device)) \
+                    * (hp * wp)
                 texel = (torch.clamp(r, 0, hp - 1) * wp
                          + torch.clamp(c, 0, wp - 1)).to(torch.int64)
-                index.append(planes + texel)
+                index.append(planes[:, None, None] + texel)
             accum.index_add_(0, torch.cat([i.reshape(-1) for i in index]),
                              torch.cat([v.reshape(-1) for v in value]))
-    return accum.reshape(N_CHAN, hp, wp)
+    return accum
+
+
+def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
+                rgba=None):
+    """Plain version of K2: the same per-sample arithmetic, deposited with
+    one `index_add_` per footprint offset (<= 9 x 9 offsets, both channel
+    groups and all samples at once)."""
+    cuda_lib.plain_calls[_variant("splat", p0 is not None,
+                                  rgba is not None)] += 1
+    hp, wp = pad_dims(*grid_hw)
+    _, _, groups = _splat_terms(scal, p1, vl, samples=samples,
+                                grid_hw=grid_hw, pscale=pscale, p0=p0,
+                                rgba=rgba)
+    accum = torch.zeros(N_CHAN * hp * wp, dtype=_F32, device=p1.device)
+    return _add_boxes(accum, groups, hp, wp).reshape(N_CHAN, hp, wp)
+
+
+# --- K2's tile partition -----------------------------------------------------
+# The contract K2's tile pass rests on (`draw_pallas.py:82-85`, `:255-263`):
+# the segments arrive tile-sorted, a segment's key tile is the top-left
+# corner of its bounding box, and a sample whose footprint lies inside its
+# key tile's REGION_H x REGION_W region deposits only into the 2 x 2
+# output tiles from there. The tile ranges, the parts and the fit test are
+# `csrc/splat.cu`'s; `tests/test_torch_splat_tiles.py` holds them, in a
+# Python transcription, to the reference's rule.
+
+
+def splat_tiles(grid_hw):
+    """`(tiles_y, tiles_x)` of the padded grid: `pad_dims` rounds it to
+    whole tiles, so the tiles cover it exactly."""
+    hp, wp = pad_dims(*grid_hw)
+    return hp // TILE_H, wp // TILE_W
+
+
+def split_chunk(n):
+    """The most weighted rows (`csrc/splat.cu` W_DIAG..W_OWN, sixteenths
+    of a row by source tile) one tile-pass block takes: a tile whose
+    source rows weigh more is split into parts that add into it with
+    global atomics. The weights of all tiles sum to 26n; a part stays
+    under 1/520 of that (~264 blocks run at once on an H100), and a tile
+    of uniform density at configs 2 and 3 stays whole."""
+    return max(4096, n // 20)
+
+
+def queue_cap(n, chunk):
+    """Room for the parts of split tiles: a split tile weighs over `chunk`
+    and has at most `2 weight / chunk` parts, and the weights of all tiles
+    sum to 26n."""
+    return -(-2 * 26 * n // chunk)
 
 
 # --- sort + orchestration --------------------------------------------------
@@ -558,8 +650,9 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
                          (y_s * scal[31] * 0.5 + 0.5) * h, grid_hw, pscale)
         p1_s = y1q * (HALF + 1) + x1q
         ride_s = [x_s, y_s, vl_s]
-    accum = splat(scal, p1_s, vl_s, samples=samples, grid_hw=grid_hw,
-                  pscale=pscale, p0=p0_s, rgba=rgba_s)
+    accum = splat(scal, keym_s, p1_s, vl_s, idx_bits=_idx_bits(gather),
+                  samples=samples, grid_hw=grid_hw, pscale=pscale, p0=p0_s,
+                  rgba=rgba_s)
     aux = None
     if gather == 2:
         aux = (idx[perm], p1_s)

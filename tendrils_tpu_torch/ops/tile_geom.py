@@ -4,8 +4,10 @@ The fused draw accumulates into a PADDED `f32[11, hp, wp]` grid whose
 content starts at (`PAD_LO_H`, `PAD_LO_W`); the packed p1 word, the segment
 tile key and the resolve all use this convention, so the port keeps the
 reference's constants bit for bit (`tendrils_tpu/ops/tile_geom.py`, without
-its `TT_REGION_*` environment overrides). The CUDA kernels need no tiles;
-the tile size only enters the sort key.
+its `TT_REGION_*` environment overrides). The tiles enter the sort key,
+and K2's tile pass owns one tile a block: a sample keyed by a tile whose
+footprint lies in the tile's REGION_H x REGION_W region only touches the
+2 x 2 tiles from there (`csrc/splat.cu`, `fits_key_tile`).
 """
 
 HALF = 32767  # 15-bit field max of the packed fixed-point streams
