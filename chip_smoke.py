@@ -67,9 +67,16 @@ memory, the strays) in every variant on three more sorted streams: a real
 config-2 frame's after 30 frames, a classic p0 stream with long segments
 (its stray pass must add samples) and a real config-3 frame's (keys in
 the merge's order), printing the partition the kernels ran on each (rows
-a tile, split tiles, the stray pass's count). It times K5 and K12 against
-`F.grid_sample` in alternating turns, and holds the K1/K2 variants with
-the p0 and rgba8 streams, K7 and K12 (with `F.grid_sample` as its library
+a tile, split tiles, the stray pass's count). It holds K5 (two launches
+for the 2-channel flow: the interleaved copy, the gather) at config 2,
+with 3 channels, and at config-3 and config-5 shapes (4,194,304 and
+16,777,216 points after a ball spawn, edge points included) within rtol
+1e-5 of its plain version, and times it against `F.grid_sample` in
+alternating turns at each; K7 within 1 per q15 field on the seeded
+classic config-2 stream, a real classic config-2 frame's after 30 frames
+and config 3's gather-mode-2 frame (phase 10), printing the words that
+differ; K12 against `F.grid_sample` in turns; the K1/K2 variants with
+the p0 and rgba8 streams, K12 (with `F.grid_sample` as its library
 yardstick), K10 and K11 on
 the merge inputs recorded from real config-3 and config-2 frames (with
 the boolean-mask selection as K10's yardstick and the flat `torch.sort`
@@ -97,6 +104,7 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 REPS = 20  # back-to-back calls a kernel or a library call is timed over
 PLAIN_REPS = 3  # the same for a plain version (up to ~0.4 s a call)
 LIB_ROUNDS = 7  # alternating turns of a kernel against its library call
+PROFILE_TRIES = 3  # traces a timing takes before it gives up
 # Kernel -> (source, the TPU kernel it replaces).
 KERNELS = {
     "pack": ("tendrils_tpu_torch/csrc/pack.cu",
@@ -143,8 +151,10 @@ CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
 CONFIG4_PATH = ("pack", "splat", "resolve", "bilinear_gather",
                 "reconstruct_resident", "gather_keyed_p1", "splat_points")
 # Launches a frame of each new path (the others: none); K2 launches
-# three kernels a call (the plan, the tile pass, the strays).
+# three kernels a call (the plan, the tile pass, the strays), K5 two on the
+# 2-channel flow (the interleaved copy, the gather).
 K2 = 3
+K5 = 2
 PATH_A = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "resolve": 1,
           "gather_keyed_q15": 1}
 PATH_C_RUNNING = {"pack_rgba": 1, "splat_rgba": K2, "resolve": 1,
@@ -186,20 +196,23 @@ def time_calls(fn, reps=REPS):
     end.record()
     end.synchronize()
     call_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    names = {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and ev.self_device_time_total > 0:
-            names[ev.key] = names.get(ev.key, 0.0) \
-                + ev.self_device_time_total / 1e3 / reps
-    if not names:
-        fail("torch.profiler recorded no device time")
-    return sum(names.values()), call_ms, names
+    # The profiler now and then hands back a trace with no device events
+    # (seen once on an H100 in several hundred traces): trace again.
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = {}
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and ev.self_device_time_total > 0:
+                names[ev.key] = names.get(ev.key, 0.0) \
+                    + ev.self_device_time_total / 1e3 / reps
+        if names:
+            return sum(names.values()), call_ms, names
+    fail(f"torch.profiler recorded no device time in {PROFILE_TRIES} traces")
 
 
 def timed_row(out, name, err, fn, plain_fn, nbytes, ops, library_fn=None,
@@ -224,17 +237,23 @@ def against_library(name, fn, library_fn, rounds=LIB_ROUNDS):
     """A kernel and the library call that computes the same function,
     each timed by device ms (`time_calls`) in `rounds` alternating turns:
     prints both medians, their ranges and the median of the turns'
-    differences, which a gap must clear to stand."""
-    ks, ls = [], []
+    differences, which a gap must clear to stand; and both medians of the
+    call ms of the same turns."""
+    ks, ls, kc, lc = [], [], [], []
     for _ in range(rounds):
-        ks.append(time_calls(fn)[0])
-        ls.append(time_calls(library_fn)[0])
+        for dev, call, f in ((ks, kc, fn), (ls, lc, library_fn)):
+            ms, call_ms, _ = time_calls(f)
+            dev.append(ms)
+            call.append(call_ms)
     diff = statistics.median(k - lib for k, lib in zip(ks, ls))
     print(f"  {name} against the library call, {rounds} alternating turns "
           f"of {REPS} calls: device {statistics.median(ks):.4f} ms "
           f"({min(ks):.4f}-{max(ks):.4f}), library "
           f"{statistics.median(ls):.4f} ms ({min(ls):.4f}-{max(ls):.4f}); "
-          f"kernel - library, median of the turns {diff * 1e3:+.2f} us")
+          f"kernel - library, median of the turns {diff * 1e3:+.2f} us; "
+          f"call ms {statistics.median(kc):.4f} ({min(kc):.4f}-"
+          f"{max(kc):.4f}), library {statistics.median(lc):.4f} "
+          f"({min(lc):.4f}-{max(lc):.4f})")
 
 
 def bound(nbytes, ops):
@@ -540,36 +559,102 @@ def check_config2_kernels():
         lambda: gather_cuda.gather_reconstruct_plain(*args, **kw),
         56 * n + 8 * texels, 40 * n)
 
-    # K5 at the particles' positions, plus points on and past the edges:
-    # reads x, y and the touched texels, writes C values a point. The
-    # library call is `grid_sample` (bilinear, border padding, unaligned
-    # corners) on the same grid and points, coordinates normalised before.
+    # K5 at the particles' positions, plus points on and past the edges.
     pos, vs = s["pos"], s["vs"]
     x = ((pos[0] * vs[0]) * 0.5 + 0.5) * w
     y = ((pos[1] * vs[1]) * 0.5 + 0.5) * h
-    x[:4] = torch.tensor([w - 0.5, w, w + 3.0, -2.0], device=dev)
-    y[:4] = torch.tensor([h - 0.5, h, 0.25, h + 5.0], device=dev)
-    got = gather_cuda.bilinear_gather(eff, x, y)
+    check_k5("config 2", eff, *on_edges(x, y, h, w), out)
+    # Three channels: a pair, then the last alone (the single-plane kernel).
+    grid3 = torch.cat([eff, view[:1]])
+    close("bilinear_gather (3 channels)",
+          [gather_cuda.bilinear_gather(grid3, x, y)],
+          [gather_cuda.bilinear_gather_plain(grid3, x, y)])
+    return out
+
+
+def on_edges(x, y, h, w):
+    """`x`, `y` with their first 4 points on and past the grid's edges."""
+    x[:4] = torch.tensor([w - 0.5, w, w + 3.0, -2.0], device=x.device)
+    y[:4] = torch.tensor([h - 0.5, h, 0.25, h + 5.0], device=y.device)
+    return x, y
+
+
+def k5_library(eff, x, y):
+    """K5's library call: `grid_sample` (bilinear, border padding,
+    unaligned corners) on the same grid and points, the coordinates
+    normalised before."""
+    h, w = eff.shape[1:]
     norm = torch.stack([x / w * 2.0 - 1.0, y / h * 2.0 - 1.0],
                        dim=-1)[None, None]
+    return lambda: torch.nn.functional.grid_sample(
+        eff[None], norm, mode="bilinear", padding_mode="border",
+        align_corners=False)
 
-    def library():
-        return torch.nn.functional.grid_sample(
-            eff[None], norm, mode="bilinear", padding_mode="border",
-            align_corners=False)
 
+def k5_inputs(name):
+    """K5's grid and points at a configuration's shapes, as the engine
+    gathers (`engine.initial_force`), their first 4 moved on and past the
+    edges, and a random decayed flow of its grid. The points: at config 2
+    ("1m-flow") phase 3's seeded positions (`resident_inputs`, seed 0),
+    spread over the view; else the particles of `models.build(name)` right
+    after its ball spawn (a respawn's positions)."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import flow as flow_ops
+    if name == "1m-flow":
+        h, w = 1080, 1920
+        pos, _, _, _, vs = resident_inputs(np.random.default_rng(0), 1 << 20,
+                                           (h, w), 0.01)
+        pos, vs = (torch.as_tensor(a, device="cuda") for a in (pos, vs))
+    else:
+        eng = models.build(name)
+        h, w = eng.config.flow_shape
+        pos, vs = eng.sim.particles[:2], eng._view_size
+        del eng
+    x = ((pos[0] * vs[0]) * 0.5 + 0.5) * w
+    y = ((pos[1] * vs[1]) * 0.5 + 0.5) * h
+    del pos
+    eff = flow_ops.flow_decayed(random_flow((h, w), 1000.0), 1000.0 + DT,
+                                0.005).contiguous()
+    return (eff, *on_edges(x, y, h, w))
+
+
+def check_k5(label, eff, x, y, out=None):
+    """K5 within rtol 1e-5 of its plain version; timed, and against
+    `grid_sample` in alternating turns. Reads x, y and the touched texels,
+    writes C values a point. With `out`, records its row there."""
+    from tendrils_tpu_torch.ops import gather_cuda
+    c, h, w = eff.shape
+    m = x.numel()
+    got = gather_cuda.bilinear_gather(eff, x, y)
+    err = close(f"bilinear_gather ({label})", [got],
+                [gather_cuda.bilinear_gather_plain(eff, x, y)])
+    library = k5_library(eff, x, y)
     lib_err = (library()[0, :, 0] - got).abs().max().item()
-    rec("bilinear_gather",
-        close("bilinear_gather", [got],
-              [gather_cuda.bilinear_gather_plain(eff, x, y)]),
-        lambda: gather_cuda.bilinear_gather(eff, x, y),
-        lambda: gather_cuda.bilinear_gather_plain(eff, x, y),
-        n * (8 + 2 * 4) + 2 * 4 * touched_texels(x, y, h, w), 20 * n,
-        library_fn=library)
-    print(f"  (grid_sample against K5: max |d| {lib_err:.3e})")
-    against_library("bilinear_gather",
-                    lambda: gather_cuda.bilinear_gather(eff, x, y), library)
-    return out
+    del got
+    nbytes = m * (8 + c * 4) + c * 4 * touched_texels(x, y, h, w)
+    fn = lambda: gather_cuda.bilinear_gather(eff, x, y)  # noqa: E731
+    if out is not None:
+        timed_row(out, "bilinear_gather", err, fn,
+                  lambda: gather_cuda.bilinear_gather_plain(eff, x, y),
+                  nbytes, 20 * m, library_fn=library)
+    else:
+        ms, call_ms, _ = time_calls(fn)
+        b, _ = bound(nbytes, 20 * m)
+        print(f"  bilinear_gather ({label}, M = {m}, {h}x{w}): max |d| "
+              f"{err:.3e}; device {ms:.4f} ms, call {call_ms:.4f} ms (bound "
+              f"{b:.4f} ms by bytes)")
+    print(f"  (grid_sample against K5 at {label}: max |d| {lib_err:.3e})")
+    against_library(f"bilinear_gather ({label})", fn, library)
+
+
+def check_k5_configs():
+    """K5 at config-3 and config-5 shapes: 4,194,304 points over
+    1080x1920 and 16,777,216 over 2160x3840 (a grid of 66 MB, more than
+    the H100's 50 MB L2)."""
+    for name, label in (("4m-respawn-stress", "config 3"),
+                        ("16m-live-show", "config 5")):
+        check_k5(label, *k5_inputs(name))
+        torch.cuda.empty_cache()
 
 
 def check_config4_kernels():
@@ -748,7 +833,7 @@ def check_slice3_kernels():
     at config-4 shapes (262,144 rows, 720x1280): K1/K2 with key_recon and
     rgba8 (the textured resident frame)."""
     from tendrils_tpu_torch.ops import flow as flow_ops, gather_cuda
-    from tendrils_tpu_torch.ops.tile_geom import HALF, PAD_LO_H, PAD_LO_W
+    from tendrils_tpu_torch.ops.tile_geom import PAD_LO_H, PAD_LO_W
     dev = torch.device("cuda")
     n, (h, w) = 1 << 20, (1080, 1920)
     sl, time_ = 0.01, 1000.0
@@ -758,31 +843,14 @@ def check_slice3_kernels():
     # each) a row; K2 the four sorted words.
     check_variant_pack_splat("p0_rgba", n, (h, w), s, 56, out)
 
-    # K7 at the sorted p1 from the decayed flow: reads p1 (4 B a row) and
-    # the touched texels (2 channels), writes one word a row; ~30
-    # operations a row.
+    # K7 at the sorted p1 from the decayed flow.
     eff = flow_ops.flow_decayed(random_flow((h, w), time_), time_ + DT,
                                 0.005).contiguous()
     p1_s = s["sorted"][1]
     inv_p = 1.0 / s["pscale"]
     inv_sl = 1.0 / torch.full((1,), sl, device=dev)
-    k7 = gather_cuda.bilinear_gather_keyed_q15(eff, p1_s, inv_sl,
-                                               inv_p=inv_p)
-    ref = gather_cuda.bilinear_gather_keyed_q15_plain(eff, p1_s, inv_sl,
-                                                      inv_p=inv_p)
-    d = torch.maximum(((k7 & HALF) - (ref & HALF)).abs(),
-                      ((k7 >> 15) - (ref >> 15)).abs())
-    if d.max().item() > 1:
-        fail(f"gather_keyed_q15: a q15 field differs by {d.max().item()}")
-    texels = touched_texels(*p1_coords(p1_s, inv_p, h, w), h, w)
-    print(f"  gather_keyed_q15: {(k7 != ref).sum().item()} of {n} words "
-          f"differ, each q15 field by <= {d.max().item()}")
-    timed_row(out, "gather_keyed_q15", float(d.max().item()),
-              lambda: gather_cuda.bilinear_gather_keyed_q15(
-                  eff, p1_s, inv_sl, inv_p=inv_p),
-              lambda: gather_cuda.bilinear_gather_keyed_q15_plain(
-                  eff, p1_s, inv_sl, inv_p=inv_p),
-              8 * n + 8 * texels, 30 * n)
+    check_k7("seeded classic config-2 stream", eff, p1_s, inv_sl,
+             inv_p=inv_p, out=out)
 
     # K12 at the same rows' padded coords (clamped as the draw's aux
     # contract has them): reads xs, ys (8 B a row) and the touched texels,
@@ -821,6 +889,58 @@ def check_slice3_kernels():
                              classic_streams(n4, hw4, sl, 4, exact_p0=False),
                              48, out)
     return out
+
+
+def check_k7(label, eff, p1_s, inv_sl, *, inv_p, out=None):
+    """K7 within 1 per q15 field of its plain version on one sorted
+    stream; prints the words that differ and the device time. Reads p1 (4
+    B a row) and the touched texels (2 channels), writes one word a row;
+    ~30 operations a row. With `out`, records its row there."""
+    from tendrils_tpu_torch.ops import gather_cuda
+    from tendrils_tpu_torch.ops.tile_geom import HALF
+    _, h, w = eff.shape
+    n = p1_s.numel()
+    k7 = gather_cuda.bilinear_gather_keyed_q15(eff, p1_s, inv_sl,
+                                               inv_p=inv_p)
+    ref = gather_cuda.bilinear_gather_keyed_q15_plain(eff, p1_s, inv_sl,
+                                                      inv_p=inv_p)
+    d = torch.maximum(((k7 & HALF) - (ref & HALF)).abs(),
+                      ((k7 >> 15) - (ref >> 15)).abs()).max().item()
+    if d > 1:
+        fail(f"gather_keyed_q15 ({label}): a q15 field differs by {d}")
+    print(f"  gather_keyed_q15 ({label}, {n} rows, {h}x{w}): "
+          f"{(k7 != ref).sum().item()} of {n} words differ, each q15 field "
+          f"by <= {d}")
+    del k7, ref
+    fn = lambda: gather_cuda.bilinear_gather_keyed_q15(  # noqa: E731
+        eff, p1_s, inv_sl, inv_p=inv_p)
+    texels = touched_texels(*p1_coords(p1_s, inv_p, h, w), h, w)
+    if out is not None:
+        timed_row(out, "gather_keyed_q15", float(d), fn,
+                  lambda: gather_cuda.bilinear_gather_keyed_q15_plain(
+                      eff, p1_s, inv_sl, inv_p=inv_p),
+                  8 * n + 8 * texels, 30 * n)
+    else:
+        ms, call_ms, _ = time_calls(fn)
+        print(f"    device {ms:.4f} ms, call {call_ms:.4f} ms (bound "
+              f"{bound(8 * n + 8 * texels, 30 * n)[0]:.4f} ms by bytes)")
+
+
+def capture_k7(eng, frames):
+    """K7's inputs (the decayed flow, the sorted p1, 1 / speedLimit and
+    the p1 scale) on the frame after `frames` frames of `eng`."""
+    from tendrils_tpu_torch import engine
+    (eff, p1_s, inv_sl), kw = capture_frame(
+        eng, frames, (engine, "bilinear_gather_keyed_q15"))[
+            "bilinear_gather_keyed_q15"]
+    return eff, p1_s, inv_sl, kw["inv_p"]
+
+
+def classic(eng):
+    """`eng` with `resident_stream=False`, its derived state re-seeded."""
+    eng.config = dataclasses.replace(eng.config, resident_stream=False)
+    eng.reseed_derived()
+    return eng
 
 
 def check_state(sim, label):
@@ -1063,7 +1183,7 @@ def run_path_a():
     check_launches("classic 1m-flow", 2 + STEPS,
                    dict(PATH_A, bilinear_gather=0), launches,
                    dict(cuda_lib.plain_calls))
-    if launches.get("bilinear_gather") != 1:  # the first frame's step
+    if launches.get("bilinear_gather") != K5:  # the first frame's step
         fail(f"classic 1m-flow: launches {launches}")
     if not torch.equal(sim.idx.cpu(), torch.arange(eng.config.n,
                                                    dtype=torch.int32)):
@@ -1381,6 +1501,17 @@ def check_splat_streams():
         fail("K2: the long-segment stream has no strays")
 
 
+def check_k7_real_frame():
+    """Phase 3's K7 on the sorted stream of a real classic config-2 frame
+    after 30 frames (flow feedback has clustered the particles; the keys
+    are the segments' tiles, so a row's p1 may lie a tile row below)."""
+    from tendrils_tpu_torch import models
+    eff, p1_s, inv_sl, inv_p = capture_k7(classic(models.build("1m-flow")),
+                                          30)
+    check_k7("real classic config-2 frame after 30 frames", eff, p1_s,
+             inv_sl, inv_p=inv_p)
+
+
 def record_merges(run):
     """`run()` with each merge frame's churned rows and `ok` read back (the
     script wraps `reorder_cuda.merge_reorder` in place for the run and
@@ -1483,7 +1614,7 @@ def run_merge_config2():
     frames = 2 + STEPS
     check_launches("1m-flow merge", frames, dict(MERGE_C2, bilinear_gather=0),
                    launches, dict(cuda_lib.plain_calls))
-    if launches.get("bilinear_gather") != 2 \
+    if launches.get("bilinear_gather") != 2 * K5 \
             or launches.get("reorder_compact") != frames \
             or launches.get("reorder_apply") != frames:
         fail(f"1m-flow merge: launches {launches}")
@@ -1582,7 +1713,7 @@ def run_merge_config3():
         per["pack_g3"] = per.pop("pack")
         check_launches(label, frames, per, launches,
                        dict(cuda_lib.plain_calls))
-        if launches.get("bilinear_gather") != 3:
+        if launches.get("bilinear_gather") != 3 * K5:
             fail(f"{label}: launches {launches}")
         if merge and sum(events.values()) != frames or not merge and events:
             fail(f"{label}: events {events}")
@@ -1612,17 +1743,17 @@ def run_config5_and_mode2(eng3):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
 
-    eng3.config = dataclasses.replace(eng3.config, resident_stream=False)
-    eng3.reseed_derived()
     cuda_lib.reset_counts()
-    eng3.frame()
-    torch.cuda.synchronize()
+    k7_args = capture_k7(classic(eng3), 0)
     add(dict(cuda_lib.launches))
     check_launches("4m-respawn-stress classic", 1, CLASSIC_G2,
                    dict(cuda_lib.launches), dict(cuda_lib.plain_calls))
     carry_ok(eng3.sim, eng3.config, "4m-respawn-stress classic")
     if eng3.sim.force is None:
         fail("4m-respawn-stress classic: no carried force")
+    check_k7("config 3's gather-mode-2 classic frame", *k7_args[:3],
+             inv_p=k7_args[3])
+    del k7_args
     eng3.timer.paused = True
     cuda_lib.reset_counts()
     eng3.frame()
@@ -1659,7 +1790,7 @@ def run_config5_and_mode2(eng3):
         per["pack_g3"] = per.pop("pack")
         check_launches(label, frames, per, launches,
                        dict(cuda_lib.plain_calls))
-        if launches.get("bilinear_gather") != 1:
+        if launches.get("bilinear_gather") != K5:
             fail(f"{label}: launches {launches}")
         if merge and (sum(events.values()) != frames
                       or events.get("reorder_fallback", 0) < 1) \
@@ -1713,8 +1844,12 @@ def main():
     checks.update(check_config4_kernels())
     print("[3] the K1/K2 variants with p0 and rgba8 streams, K7 and K12:")
     checks.update(check_slice3_kernels())
-    print("[3] K2 on real and long-segment streams:")
+    print("[3] K2 on real and long-segment streams, K7 on a real classic "
+          "frame's:")
     check_splat_streams()
+    check_k7_real_frame()
+    print("[3] K5 at config-3 and config-5 shapes:")
+    check_k5_configs()
     print("[3] the merge reorder (K10, K11) and K2 on real frames' inputs, "
           "and K1 in gather modes 3 and 2 at config-3 shapes:")
     checks.update(check_merge_kernels())

@@ -2,6 +2,7 @@
 
     python3 frame_profile.py [--model M] [--frames 20] [--classic]
                              [--color-maps] [--paused] [--merge]
+    python3 frame_profile.py --gathers
 
 Drives `models.build(M)`: "optical-flow-driven" (config 4, the default)
 through `step_draw_io` with the feed of `chip_smoke.py` (`feeds.IoFeed`:
@@ -31,6 +32,17 @@ readings of the same frame:
   4. with `--merge`: the plain loop again, with only the host read of the
      merge's `ok` timed (no synchronisation added): the host's wait for
      the device to reach the merge, and the merged and fallback counts.
+
+`--gathers` times the force gathers alone, by device time over 20
+back-to-back calls (`chip_smoke.time_calls`), at the shapes their frames
+give them: K5 at configs 2, 3 and 5 (`chip_smoke.k5_inputs`), each
+against `F.grid_sample` in 7 alternating turns, then the host's time to
+enqueue one call of each (`host_us`), also in turns; K7 three times on each
+of the seeded classic config-2 stream, a real classic config-2 frame's
+after 30 frames and a config-3 classic frame's (gather mode 2). It needs
+only what the package has had since the gathers were first ported, so it
+also times an older tree's kernels (copy this script and `chip_smoke.py`
+into that tree).
 
 It imports nothing of JAX; it needs a CUDA device.
 """
@@ -107,6 +119,71 @@ def _ok_timer(acc):
     return fn
 
 
+def k7_streams():
+    """K7's inputs `(label, eff, p1, inv_sl, inv_p)`: the seeded classic
+    config-2 stream, a real classic config-2 frame's after 30 frames, a
+    config-3 classic frame's (gather mode 2)."""
+    import chip_smoke as cs
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import flow as flow_ops
+    s = cs.classic_streams(1 << 20, (1080, 1920), 0.01, 3)
+    eff = flow_ops.flow_decayed(cs.random_flow((1080, 1920), 1000.0),
+                                1000.0 + cs.DT, 0.005).contiguous()
+    yield ("seeded classic config-2 stream", eff, s["sorted"][1],
+           1.0 / torch.full((1,), 0.01, device="cuda"), 1.0 / s["pscale"])
+    del s, eff
+    for name, frames, label in (
+            ("1m-flow", 30, "real classic config-2 frame after 30 frames"),
+            ("4m-respawn-stress", 3, "config-3 classic frame (gather mode "
+             "2)")):
+        yield (label, *cs.capture_k7(cs.classic(models.build(name)), frames))
+
+
+def host_us(fn, calls=200):
+    """The host's time to enqueue one call of `fn`, in us: `calls`
+    back-to-back calls with no synchronisation between them, after a warm
+    one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def profile_gathers():
+    """`--gathers`: K5 and K7 alone, by device time."""
+    import chip_smoke as cs
+    from tendrils_tpu_torch.ops import gather_cuda
+    print(f"K5 and K7 alone on {torch.cuda.get_device_name(0)}")
+    for name in ("1m-flow", "4m-respawn-stress", "16m-live-show"):
+        eff, x, y = cs.k5_inputs(name)
+        print(f"K5 at {name}: {x.numel()} points, grid {tuple(eff.shape)}")
+        fn = lambda: gather_cuda.bilinear_gather(eff, x, y)  # noqa: E731
+        library = cs.k5_library(eff, x, y)
+        cs.against_library(f"  bilinear_gather ({name})", fn, library)
+        ks, ls = [], []
+        for _ in range(cs.LIB_ROUNDS):
+            ks.append(host_us(fn))
+            ls.append(host_us(library))
+        print(f"    host enqueue, us a call, {cs.LIB_ROUNDS} turns: K5 "
+              f"{statistics.median(ks):.1f} ({min(ks):.1f}-{max(ks):.1f}), "
+              f"grid_sample {statistics.median(ls):.1f} ({min(ls):.1f}-"
+              f"{max(ls):.1f})")
+        del eff, x, y
+        torch.cuda.empty_cache()
+    for label, eff, p1, inv_sl, inv_p in k7_streams():
+        ms = [cs.time_calls(lambda: gather_cuda.bilinear_gather_keyed_q15(
+            eff, p1, inv_sl, inv_p=inv_p))[0] for _ in range(3)]
+        print(f"K7 on the {label} ({p1.numel()} rows): device "
+              f"{statistics.median(ms):.4f} ms (3 timings: "
+              f"{', '.join(f'{t:.4f}' for t in ms)})")
+        del eff, p1
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="optical-flow-driven",
@@ -117,9 +194,12 @@ def main():
     ap.add_argument("--color-maps", action="store_true")
     ap.add_argument("--paused", action="store_true")
     ap.add_argument("--merge", action="store_true")
+    ap.add_argument("--gathers", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device")
+    if args.gathers:
+        return profile_gathers()
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.feeds import IoFeed
     from tendrils_tpu_torch.ops import cuda_lib, spawn

@@ -71,14 +71,16 @@ __device__ __forceinline__ Bilerp bilerp_at(int h, int w, float x, float y) {
 }
 
 // The same lerps, in the same order, as bilinear_sample.
+__device__ __forceinline__ float lerp2d(float v00, float v01, float v10,
+                                        float v11, float fx, float fy) {
+  const float top = v00 + (v01 - v00) * fx;
+  const float bot = v10 + (v11 - v10) * fx;
+  return top + (bot - top) * fy;
+}
+
 __device__ __forceinline__ float bilerp(const float* plane, const Bilerp& b) {
-  const float v00 = plane[b.i00];
-  const float v01 = plane[b.i01];
-  const float v10 = plane[b.i10];
-  const float v11 = plane[b.i11];
-  const float top = v00 + (v01 - v00) * b.fx;
-  const float bot = v10 + (v11 - v10) * b.fx;
-  return top + (bot - top) * b.fy;
+  return lerp2d(plane[b.i00], plane[b.i01], plane[b.i10], plane[b.i11], b.fx,
+                b.fy);
 }
 
 // Unpack a fixed-point p1 word (x in the low 15 bits, y above, at `inv_p`

@@ -19,8 +19,14 @@
 // injected between the draw and the gather. All three call the same
 // device functions (common.cuh: bilerp_p1, reconstruct_row), so K4 equals
 // K8 + K6 bit for bit.
-// K5, one thread per point: CLAMP_TO_EDGE bilinear sampling of a C-channel
-// grid at arbitrary f32 texel coords (contract: ops/sample.bilinear_sample).
+// K5: CLAMP_TO_EDGE bilinear sampling of a C-channel grid at arbitrary f32
+// texel coords (contract: ops/sample.bilinear_sample). For each pair of
+// channels `interleave_pair_kernel` copies the pair's planes into one
+// texel-major f32[H, W, 2] scratch, then `bilinear_gather_pair_kernel`,
+// one thread a point, reads each corner's two values with one 8-byte
+// load: random points cost L2 sectors, and the pair shares one
+// (PERF.md section 6 has the variants that were timed). An odd last
+// channel is gathered from its plane (`bilinear_gather_kernel`).
 // K7, one thread per sorted row: K8's gather of the 2-channel decayed flow,
 // then the force packed as two q15 fields over +-speedLimit, y << 15 | x
 // (gather_pallas.py:222-232), the one word the non-resident frame un-sorts
@@ -91,18 +97,42 @@ __global__ void gather_keyed_p1_kernel(const float* __restrict__ grid, int c,
   }
 }
 
-__global__ void bilinear_gather_kernel(const float* __restrict__ grid, int c,
-                                       int h, int w,
-                                       const float* __restrict__ xs,
+// K5, the first launch for a pair of channels: planes a and b as one
+// texel-major f32[hw, 2] copy.
+__global__ void interleave_pair_kernel(const float* __restrict__ a,
+                                       const float* __restrict__ b, int hw,
+                                       float2* __restrict__ pair) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= hw) return;
+  pair[i] = make_float2(__ldcs(a + i), __ldcs(b + i));
+}
+
+// K5, the second: both channels of the pair at each point.
+__global__ void bilinear_gather_pair_kernel(const float2* __restrict__ pair,
+                                            int h, int w,
+                                            const float* __restrict__ xs,
+                                            const float* __restrict__ ys,
+                                            int m, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const Bilerp b = bilerp_at(h, w, __ldcs(xs + i), __ldcs(ys + i));
+  const float2 v00 = __ldg(pair + b.i00);
+  const float2 v01 = __ldg(pair + b.i01);
+  const float2 v10 = __ldg(pair + b.i10);
+  const float2 v11 = __ldg(pair + b.i11);
+  __stcs(out + i, lerp2d(v00.x, v01.x, v10.x, v11.x, b.fx, b.fy));
+  __stcs(out + m + i, lerp2d(v00.y, v01.y, v10.y, v11.y, b.fx, b.fy));
+}
+
+// K5 for an odd last channel: its plane, one thread a point.
+__global__ void bilinear_gather_kernel(const float* __restrict__ plane, int h,
+                                       int w, const float* __restrict__ xs,
                                        const float* __restrict__ ys, int m,
                                        float* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
-  const Bilerp b = bilerp_at(h, w, xs[i], ys[i]);
-  const long long plane = (long long)h * w;
-  for (int k = 0; k < c; ++k) {
-    out[(long long)k * m + i] = bilerp(grid + k * plane, b);
-  }
+  __stcs(out + i, bilerp(plane, bilerp_at(h, w, __ldcs(xs + i),
+                                          __ldcs(ys + i))));
 }
 
 // jnp.round(clip(v * inv_sl, -1, 1) * 0.5 + 0.5) * HALF) of the q15 pack.
@@ -199,13 +229,28 @@ extern "C" int tt_gather_keyed_p1(const float* grid, int c, int h, int w,
   return (int)cudaGetLastError();
 }
 
+// K5: `pair` is f32[H, W, 2] scratch (unused when c == 1); one
+// interleave and one gather a pair of channels, one gather for an odd last
+// channel.
 extern "C" int tt_bilinear_gather(const float* grid, int c, int h, int w,
                                   const float* x, const float* y, int m,
-                                  float* out, void* stream) {
-  if (m > 0) {
-    bilinear_gather_kernel<<<blocks_for(m), THREADS, 0,
-                             (cudaStream_t)stream>>>(grid, c, h, w, x, y, m,
-                                                     out);
+                                  float* pair, float* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int hw = h * w;
+  if (m > 0 && hw > 0) {
+    float2* pair2 = reinterpret_cast<float2*>(pair);
+    for (int k = 0; k + 1 < c; k += 2) {
+      interleave_pair_kernel<<<blocks_for(hw), THREADS, 0, s>>>(
+          grid + (long long)k * hw, grid + (long long)(k + 1) * hw, hw,
+          pair2);
+      bilinear_gather_pair_kernel<<<blocks_for(m), THREADS, 0, s>>>(
+          pair2, h, w, x, y, m, out + (long long)k * m);
+    }
+    if (c % 2) {
+      bilinear_gather_kernel<<<blocks_for(m), THREADS, 0, s>>>(
+          grid + (long long)(c - 1) * hw, h, w, x, y, m,
+          out + (long long)(c - 1) * m);
+    }
   }
   return (int)cudaGetLastError();
 }

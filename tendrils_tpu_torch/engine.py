@@ -574,12 +574,18 @@ class Tendrils:
     """Stateful engine facade mirroring the reference class API
     (`src/index.js:83`): setup / reset / restart / step / frame / spawn /
     spawn_shader / clear*, on `device` ("cuda" by default; the tests pass
-    "cpu", where every kernel takes its plain version)."""
+    "cpu", where every kernel takes its plain version). `seed` is the JAX
+    facade's: kept as `self.seed`, it seeds `self.generator`, the
+    `torch.Generator` that stochastic spawners draw from."""
 
     def __init__(self, config: EngineConfig | None = None, *,
-                 timer: Timer | None = None, device="cuda", **overrides):
+                 timer: Timer | None = None, seed: int = 0, device="cuda",
+                 **overrides):
         self.config = config or EngineConfig(**overrides)
         self.device = torch.device(device)
+        self.seed = seed
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
         # Live-tweakable parameter dict (host-side mirror of
         # `defaults().state`); converted to device tensors per call.
         self.state = state_mod.default_state()
@@ -629,7 +635,8 @@ class Tendrils:
         cfg = self.config
         self.sim = state_mod.make_state(
             cfg.root_num, cfg.view_res, cfg.num_view_buffers,
-            cfg.color_map_res, cfg.flow_shape, device=self.device)
+            cfg.color_map_res, self.seed, cfg.flow_shape,
+            device=self.device)
         self.reseed_derived()
         self.reset()
         return self

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "tt_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tt_gather_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P,
                               _P, _P, _P],
-    "tt_bilinear_gather": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "tt_bilinear_gather": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
     "tt_reconstruct": [_P, _P, _P, _P, _I, _P, _P, _P],
     "tt_gather_keyed_p1": [_P, _I, _I, _I, _P, _I, _F, _P, _P],
     "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
@@ -144,9 +144,10 @@ def library():
     return lib
 
 
-def launch(name, counter, *args):
-    """Run C entry `name` on the current stream; count it under `counter`.
-    Tensor arguments pass as device pointers, None as a null pointer."""
+def launch(name, counter, *args, kernels=1):
+    """Run C entry `name` on the current stream; count the `kernels`
+    launches it makes under `counter`. Tensor arguments pass as device
+    pointers, None as a null pointer."""
     lib = library()
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
@@ -154,7 +155,7 @@ def launch(name, counter, *args):
     if err:
         raise RuntimeError(f"{name}: CUDA error {err}: "
                            f"{lib.tt_error_string(err).decode()}")
-    launches[counter] += 1
+    launches[counter] += kernels
 
 
 def on_cpu(*tensors):

@@ -7,7 +7,8 @@ The port of `tendrils_tpu/ops/gather_pallas.py` for the slice:
       state reassembly (`draw_cuda.reconstruct_rows`);
   K5 `bilinear_gather`       (csrc/gather.cu) per point: CLAMP_TO_EDGE
       bilinear sampling at arbitrary pixel coords (`sample.bilinear_sample`
-      is its plain version);
+      is its plain version), each pair of channels interleaved into one
+      texel-major copy first;
   K8 `bilinear_gather_keyed_p1` (csrc/gather.cu) per sorted row: K4's
       gather half alone, for frames that edit the flow between the draw
       and the gather (K4 == K8 + K6 `draw_cuda.reconstruct_resident`);
@@ -36,7 +37,9 @@ _I32 = torch.int32
 def bilinear_gather(grid, x, y):
     """K5: bilinearly sample `grid: f32[C, H, W]` at pixel coords `x`,
     `y: f32[M]` (same contract as `sample.bilinear_sample`, CLAMP_TO_EDGE).
-    Returns `f32[C, M]`."""
+    Returns `f32[C, M]`. One C call, C kernel launches: two for each pair
+    of channels (the pair's planes interleaved into a scratch copy, then
+    the gather), one for an odd last channel."""
     if cuda_lib.on_cpu(grid, x, y):
         return bilinear_gather_plain(grid, x, y)
     c, h, w = grid.shape
@@ -44,9 +47,14 @@ def bilinear_gather(grid, x, y):
     cuda_lib.check(grid, "grid", _F32, (c, h, w))
     cuda_lib.check(x, "x", _F32, (m,))
     cuda_lib.check(y, "y", _F32, (m,))
+    if h * w >= 2 ** 31:
+        raise ValueError(f"a {h}x{w} plane has 2^31 texels or more; the "
+                         "kernels index a plane with 32-bit offsets")
     out = torch.empty((c, m), dtype=_F32, device=grid.device)
+    pair = torch.empty((h, w, 2), dtype=_F32, device=grid.device) \
+        if c > 1 else None
     cuda_lib.launch("tt_bilinear_gather", "bilinear_gather", grid, c, h, w,
-                    x, y, m, out)
+                    x, y, m, pair, out, kernels=c)
     return out
 
 

@@ -94,9 +94,11 @@ class SimState:
         MAXKEY-filled key (the seed) makes the next frame flat-sort and
         re-establish it, so spawns and buffer edits never invalidate it.
 
-    The JAX state's threefry `key` has no counterpart: the ball spawn is a
-    deterministic coordinate hash, and stochastic spawns will take an
-    explicit `torch.Generator`.
+    The JAX state's threefry `key` has no counterpart, since nothing in
+    either engine draws from it yet: `make_state` takes the JAX function's
+    `seed` and drops it, and the facade keeps the seed and a seeded
+    `torch.Generator` (`Tendrils.seed`, `Tendrils.generator`) for the
+    stochastic spawners.
     """
     particles: torch.Tensor
     previous: torch.Tensor
@@ -111,11 +113,13 @@ class SimState:
 
 
 def make_state(root_num: int = 512, view_res=(720, 1280), num_view_buffers=1,
-               color_map_res=(1, 1), flow_res=None, *,
+               color_map_res=(1, 1), seed: int = 0, flow_res=None, *,
                device="cuda") -> SimState:
     """Allocate a fresh SimState on `device`: all particles inert (ref
     `src/spawn/init/cpu.js:1-8`), grids zero. `view_res` is (H, W);
-    `flow_res` defaults to `view_res` (ref `src/index.js:405`)."""
+    `flow_res` defaults to `view_res` (ref `src/index.js:405`). `seed` sits
+    in the JAX function's slot and seeds nothing here (the state has no
+    `key`: see `SimState`)."""
     n = int(root_num) * int(root_num)
     h, w = view_res
     fh, fw = (flow_res if flow_res is not None else view_res)

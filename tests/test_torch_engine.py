@@ -88,6 +88,28 @@ def test_run_headless_from_spawn(jax_run):
     _compare(tsim, sim_arrays(jsim))
 
 
+@pytest.mark.parametrize("with_config", [False, True])
+def test_facade_takes_the_seed(with_config):
+    """`seed` is the JAX facade's keyword, with a config and without one:
+    kept, seeding the facade's generator, and no config field."""
+    cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128))
+    args = (cfg,) if with_config else ()
+    kw = {} if with_config else dict(root_num=4, view_res=(16, 128))
+    eng = tengine.Tendrils(*args, seed=3, device="cpu", **kw).setup()
+    jeng = jengine.Tendrils(*args, seed=3, **kw)
+    assert eng.seed == jeng.seed == 3
+    assert eng.config == cfg
+    assert eng.generator.initial_seed() == 3
+    assert eng.sim.particles.shape == (4, 16)
+
+
+def test_facades_with_one_seed_draw_the_same_numbers():
+    a, b, c = (tengine.Tendrils(seed=s, device="cpu") for s in (5, 5, 6))
+    draws = [torch.rand(64, generator=e.generator) for e in (a, b, c)]
+    assert torch.equal(draws[0], draws[1])
+    assert not torch.equal(draws[0], draws[2])
+
+
 def test_unported_branches_raise():
     cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128))
     eng = tengine.Tendrils(cfg, device="cpu").setup()

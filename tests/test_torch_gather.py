@@ -14,7 +14,8 @@ from tendrils_tpu_torch.ops import cuda_lib, gather_cuda as tgather
 from tendrils_tpu_torch.ops.draw_cuda import (pos_scale_for,
                                               reconstruct_resident)
 from tendrils_tpu_torch.ops.tile_geom import (HALF, PAD_LO_H, PAD_LO_W,
-                                              TILE_H, TILE_W, pad_dims)
+                                              REGION_H, REGION_W, TILE_H,
+                                              TILE_W, pad_dims)
 
 pytestmark = pytest.mark.kernel  # runs the JAX Pallas kernels (pytest.ini)
 
@@ -37,12 +38,25 @@ def _edge_points(rng, h, w, m):
     return np.concatenate([x, ex]), np.concatenate([y, ey])
 
 
-@pytest.mark.parametrize("grid_hw", GRIDS)
-def test_bilinear_gather_matches_jax(grid_hw):
+def _tile_points(rng, m, ty, tx):
+    """`m` points inside the padded grid's tile (ty, tx), in content
+    coords."""
+    x = rng.uniform(tx * TILE_W, (tx + 1) * TILE_W, m) - PAD_LO_W
+    y = rng.uniform(ty * TILE_H, (ty + 1) * TILE_H, m) - PAD_LO_H
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+# K5 on points spread over and past each grid, and on points all in one
+# tile (neighbouring points share texels).
+@pytest.mark.parametrize("grid_hw, one_tile", [
+    *(pytest.param(g, False, id=f"grid_hw{i}") for i, g in enumerate(GRIDS)),
+    pytest.param((64, 384), True, id="one_tile")])
+def test_bilinear_gather_matches_jax(grid_hw, one_tile):
     rng = np.random.default_rng(0)
     h, w = grid_hw
     grid = rng.uniform(-1, 1, (2, h, w)).astype(np.float32)
-    x, y = _edge_points(rng, h, w, 3000)
+    x, y = (_tile_points(rng, 3000, 2, 1) if one_tile
+            else _edge_points(rng, h, w, 3000))
     jargs = (jnp.asarray(grid), jnp.asarray(x), jnp.asarray(y))
     t = tgather.bilinear_gather(torch.as_tensor(grid), torch.as_tensor(x),
                                 torch.as_tensor(y)).numpy()
@@ -170,8 +184,80 @@ def test_gather_reconstruct_is_keyed_gather_plus_reconstruct():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("grid_hw", GRIDS)
-def test_bilinear_gather_keyed_q15_matches_jax(grid_hw):
+def _pack_p1(x, y, pscale):
+    """Content coords to packed p1 words at `1/pscale` padded px."""
+    xq = np.rint((x + PAD_LO_W) * pscale).astype(np.int32)
+    yq = np.rint((y + PAD_LO_H) * pscale).astype(np.int32)
+    return yq * (HALF + 1) + xq
+
+
+def _gather_keys(p1, seg_keys, grid_hw):
+    """The draw's gather keys (draw_pallas.py:970-987): a row's segment key
+    where both bilinear corners of its clamped p1 lie in that key tile's
+    region, else the p1's own tile; and the own tiles."""
+    h, w = grid_hw
+    inv_p = 1.0 / pos_scale_for(grid_hw)
+    tiles_x = pad_dims(h, w)[1] // TILE_W
+    xs = np.clip((p1 & HALF).astype(np.float32) * np.float32(inv_p),
+                 PAD_LO_W + 0.5, PAD_LO_W + w - 0.5)
+    ys = np.clip((p1 >> 15).astype(np.float32) * np.float32(inv_p),
+                 PAD_LO_H + 0.5, PAD_LO_H + h - 0.5)
+    r0 = np.floor(ys - 0.5).astype(np.int32)
+    c0 = np.floor(xs - 0.5).astype(np.int32)
+    kr, kc = seg_keys // tiles_x, seg_keys % tiles_x
+    fits = ((r0 >= kr * TILE_H) & (c0 >= kc * TILE_W)
+            & (r0 + 1 < kr * TILE_H + REGION_H)
+            & (c0 + 1 < kc * TILE_W + REGION_W))
+    own = (r0 // TILE_H) * tiles_x + c0 // TILE_W
+    return np.where(fits, seg_keys, own).astype(np.int32), own
+
+
+def _sorted_p1_case(rng, grid_hw, m, stream):
+    """A draw's sorted rows: packed p1 words in segment-key order and the
+    gather keys. "tiles": rows of three tiles (two side by side, one in the
+    tile row below), each row keyed by its own tile, so one run of sorted
+    rows spans tiles. "long": rows spread over the grid whose segment key
+    is the tile at the top-left of the box from p0 to p1, with p0 anywhere
+    on the grid for a fifth of them (long segments: their p1 lies outside
+    their key's tile, and the gather key falls back to the p1's tile)."""
+    h, w = grid_hw
+    pscale = pos_scale_for(grid_hw)
+    tiles_x = pad_dims(h, w)[1] // TILE_W
+    if stream == "tiles":
+        pts = [_tile_points(rng, m // 3, ty, tx)
+               for ty, tx in ((1, 1), (1, 2), (2, 1))]
+        x = np.concatenate([p[0] for p in pts])
+        y = np.concatenate([p[1] for p in pts])
+        p0x, p0y = x, y
+    else:
+        x = rng.uniform(0, w, m).astype(np.float32)
+        y = rng.uniform(0, h, m).astype(np.float32)
+        far = rng.random(m) < 0.2
+        p0x = np.where(far, rng.uniform(0, w, m), x - 3.0)
+        p0y = np.where(far, rng.uniform(0, h, m), y - 2.0)
+    p1 = _pack_p1(x, y, pscale)
+    top = np.clip(np.minimum(p0y, y) - 3.0 + PAD_LO_H, 0, None)
+    left = np.clip(np.minimum(p0x, x) - 3.0 + PAD_LO_W, 0, None)
+    seg = ((top // TILE_H).astype(np.int32) * tiles_x
+           + (left // TILE_W).astype(np.int32))
+    order = np.argsort(seg, kind="stable")
+    p1, seg = p1[order], seg[order]
+    keys, own = _gather_keys(p1, seg, grid_hw)
+    if stream == "long":
+        # p1 outside its key's tile; beyond its region, the p1's own key.
+        assert (own != seg).mean() > 0.1 and (keys != seg).any()
+    return p1, keys, 1.0 / pscale
+
+
+# K7 on random rows with their own tile keys, and on sorted runs of rows as
+# a kernel block takes them: rows of several tiles, and long segments whose
+# p1 has left their key's tile.
+@pytest.mark.parametrize("grid_hw, stream", [
+    *(pytest.param(g, "edges", id=f"grid_hw{i}")
+      for i, g in enumerate(GRIDS)),
+    pytest.param((64, 384), "tiles", id="sorted_tiles"),
+    pytest.param((64, 384), "long", id="long_segments")])
+def test_bilinear_gather_keyed_q15_matches_jax(grid_hw, stream):
     """K7 (plain version on the CPU) against the JAX q15 keyed gather: the
     TPU kernel sums one-hot matmul rows where the port lerps, so a field
     may round to the other side of a q15 step (the JAX test's own bound,
@@ -180,7 +266,8 @@ def test_bilinear_gather_keyed_q15_matches_jax(grid_hw):
     h, w = grid_hw
     sl = np.float32(0.02)
     grid = rng.uniform(-1.5, 1.5, (2, h, w)).astype(np.float32) * sl
-    p1, keys, inv_p = _p1_case(rng, grid_hw, 3000)
+    p1, keys, inv_p = (_p1_case(rng, grid_hw, 3000) if stream == "edges"
+                       else _sorted_p1_case(rng, grid_hw, 3000, stream))
     inv_sl = np.float32(1.0) / sl
     jout = np.asarray(jgather.bilinear_gather_keyed_q15(
         jnp.asarray(grid), jnp.asarray(p1), jnp.asarray(keys),

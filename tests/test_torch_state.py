@@ -28,10 +28,14 @@ def test_default_state_and_params_match():
     dict(root_num=16, view_res=(32, 128)),
     dict(root_num=8, view_res=(24, 40), num_view_buffers=2,
          color_map_res=(3, 5), flow_res=(12, 20)),
+    # The JAX function's positional slots, `seed` fifth and `flow_res` last.
+    dict(args=(8, (24, 40), 2, (3, 5), 7, (12, 20))),
 ])
 def test_make_state_matches(kw):
-    j = jstate.make_state(**kw)
-    t = tstate.make_state(**kw, device="cpu")
+    kw = dict(kw)
+    args = kw.pop("args", ())
+    j = jstate.make_state(*args, **kw)
+    t = tstate.make_state(*args, **kw, device="cpu")
     for f in ("particles", "previous", "targets", "flow", "view", "color_map",
               "idx"):
         a, b = getattr(t, f).numpy(), np.asarray(getattr(j, f))
