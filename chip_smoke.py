@@ -24,11 +24,13 @@ Phases (each prints a line; any failure exits non-zero before the result):
      must be alive and finite. Then ms/frame and particle-steps/s as the
      median of 3 timed 60-step runs, and a small run on the card against
      the same run on the CPU (plain versions);
-  5. K2's replay contract: the same config-2 frame twice from one converted
-     state, each grid channel within 1e-5 of its max (float atomics add in
-     run-dependent order), the carried force (gathered from those grids,
-     by identity) within 1e-5 of its flow channel's max, and particles
-     within atol 1e-4 (by identity);
+  5. the replay contract: the same frame twice from one converted state
+     gives the same state bit for bit (`torch.equal` of every tensor:
+     particles, previous, flow, view, the carried force, the row order),
+     as the JAX package's does (K2 and K9 sum in int64 fixed point): the
+     config-2 frame; at config 3 the resident frame right after a ball
+     respawn (its strays and split tiles printed); at config 4 an io frame
+     with pointer samples (K9);
   6. config 4 through the user's entry points: `models.build(
      "optical-flow-driven")` and `step_draw_io` fed by `media.OpticalFlow`
      (a 480x640 u8 camera with a moving bar, one upload a frame) and
@@ -62,20 +64,23 @@ Phases (each prints a line; any failure exits non-zero before the result):
  10. at config 3 one classic frame and one paused `frame()` (gather mode
      2, K7); config 5 (`models.build("16m-live-show")`) headless, on and
      off: 2 warm steps and 3 timed runs of 10.
-Phase 3 holds K2 (three launches: the plan, the tile pass in shared
-memory, the strays) in every variant on three more sorted streams: a real
-config-2 frame's after 30 frames, a classic p0 stream with long segments
-(its stray pass must add samples) and a real config-3 frame's (keys in
-the merge's order), printing the partition the kernels ran on each (rows
-a tile, split tiles, the stray pass's count). It holds K5 (two launches
+Phase 3 holds K2 (four launches: the plan, the tile pass in shared
+memory, the strays, the conversion of its int64 sums) in every variant
+on three more sorted streams: a real config-2 frame's after 30 frames, a
+classic p0 stream with long segments (its stray pass must add samples)
+and a real config-3 frame's (keys in the merge's order; it must split
+tiles), printing the partition the kernels ran on each (rows a tile,
+split tiles, the stray pass's count); on every stream each variant runs
+twice and must give the same bits, as K9 must at config 4. It holds K5 (two launches
 for the 2-channel flow: the interleaved copy, the gather) at config 2,
 with 3 channels, and at config-3 and config-5 shapes (4,194,304 and
 16,777,216 points after a ball spawn, edge points included) within rtol
 1e-5 of its plain version, and times it against `F.grid_sample` in
 alternating turns at each; K7 within 1 per q15 field on the seeded
-classic config-2 stream, a real classic config-2 frame's after 30 frames
-and config 3's gather-mode-2 frame (phase 10), printing the words that
-differ; K12 against `F.grid_sample` in turns; the K1/K2 variants with
+classic config-2 stream, a real classic config-2 frame's after 30 frames,
+path B's paused config-4 frame's (262,144 rows) and config 3's
+gather-mode-2 frame (phase 10), printing the words that differ and its
+device time on each; K12 against `F.grid_sample` in turns; the K1/K2 variants with
 the p0 and rgba8 streams, K12 (with `F.grid_sample` as its library
 yardstick), K10 and K11 on
 the merge inputs recorded from real config-3 and config-2 frames (with
@@ -151,16 +156,18 @@ CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
 CONFIG4_PATH = ("pack", "splat", "resolve", "bilinear_gather",
                 "reconstruct_resident", "gather_keyed_p1", "splat_points")
 # Launches a frame of each new path (the others: none); K2 launches
-# three kernels a call (the plan, the tile pass, the strays), K5 two on the
-# 2-channel flow (the interleaved copy, the gather).
-K2 = 3
+# four kernels a call (the plan, the tile pass, the strays, the
+# conversion), K5 two on the 2-channel flow (the interleaved copy, the
+# gather), K9 three (the channel bounds, the adds, the conversion).
+K2 = 4
 K5 = 2
+K9 = 3
 PATH_A = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "resolve": 1,
           "gather_keyed_q15": 1}
 PATH_C_RUNNING = {"pack_rgba": 1, "splat_rgba": K2, "resolve": 1,
                   "reconstruct_resident": 1, "gather_keyed_p1": 1,
-                  "splat_points": 1}
-PATH_C_PAUSED = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "splat_points": 1}
+                  "splat_points": K9}
+PATH_C_PAUSED = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "splat_points": K9}
 PATH_B = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "gather_keyed_q15": 1}
 # The resident frame with the merge on (K1 "pack" is "pack_g3" in gather
 # mode 3), with it off at configs 3 and 5, and the gather-mode-2 frames.
@@ -348,8 +355,10 @@ def close(name, got, want):
 
 
 def within_channel_max(name, got, want):
-    """K2, K9: float atomics add in run-dependent order, so |d| <= 1e-5 x
-    the channel's max. `got`, `want`: [C, ...]."""
+    """K2, K9 against their plain versions: the kernels quantise each add
+    to their channel's fixed-point step and sum exactly, the plain
+    versions round each f32 add of `index_add_`, so |d| <= 1e-5 x the
+    channel's max. `got`, `want`: [C, ...]."""
     c = want.shape[0]
     scale = want.abs().reshape(c, -1).amax(dim=1)
     err = (got - want).abs().reshape(c, -1).amax(dim=1)
@@ -414,14 +423,15 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
                        grid_hw, pscale, p0=None, rgba=None, exact=False):
     """K2 on one sorted stream in every variant (words the stream lacks
     made up: p0 by `p0_words`, rgba8 seeded), each within 1e-5 of each
-    channel's max of `splat_plain`. Prints the partition the kernels ran
+    channel's max of `splat_plain` and the same bits on a second call
+    with the same inputs. Prints the partition the kernels ran
     on the stream's own variant (`draw_cuda.splat_planned`), its tile
     ranges held to `torch.searchsorted`: rows a key tile and an output
     tile's weighted source rows (max, median), the split tiles and the
     samples the stray pass added. With `exact`, the
     stream's own variant also within 1e-5 of each channel's max of
     `exact_splat`, the plain version's distance from it printed beside.
-    Returns `({variant: max |d|}, strays)`."""
+    Returns `({variant: max |d|}, strays, split tiles)`."""
     from tendrils_tpu_torch.ops import draw_cuda
     n = p1.numel()
     p0_w = p0 if p0 is not None else p0_words(scal, p1, vl, grid_hw, pscale)
@@ -439,7 +449,12 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
         got = draw_cuda.splat(scal, keym_s, p1, vl, p0=v_p0, rgba=v_rgba,
                               **kw)
         errs[name] = within_channel_max(f"{name} ({label})", got, want)
-        del got, want
+        again = draw_cuda.splat(scal, keym_s, p1, vl, p0=v_p0, rgba=v_rgba,
+                                **kw)
+        if not torch.equal(got, again):
+            fail(f"{name} ({label}): two calls on one input differ in "
+                 f"{(got != again).sum().item()} texels")
+        del got, want, again
     _, info, queue = draw_cuda.splat_planned(
         scal, keym_s, p1, vl, p0=p0, rgba=rgba, **kw)
     info = info.reshape(-1, draw_cuda.SPLAT_INFO)
@@ -461,7 +476,8 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
         fail(f"K2 ({label}): {queued} parts queued for {split} split tiles "
              f"(room for {draw_cuda.queue_cap(n, chunk)})")
     print(f"  K2 on the {label} ({n} rows, gather bits {idx_bits}): every "
-          f"variant within 1e-5 of each channel's max of the plain version "
+          f"variant the same bits on two calls, within 1e-5 of each "
+          f"channel's max of the plain version "
           f"(max |d| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f"); rows a key tile max {rows.max().item():.0f}, median "
           f"{rows.median().item():.0f}; an output tile's weighted source "
@@ -488,7 +504,7 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
               f"{got:.3e} of each channel's max, the plain version "
               f"{plain:.3e}")
         del ref
-    return errs, strays
+    return errs, strays, split
 
 
 def check_config2_kernels():
@@ -525,7 +541,7 @@ def check_config2_kernels():
     args = (scal, s["keym_s"], p1_s, vl_s)
     kw = dict(idx_bits=20, samples=2, grid_hw=(h, w), pscale=pscale)
     acc = draw_cuda.splat(*args, **kw)
-    errs, _ = check_splat_stream("seeded config-2 stream", *args, **kw)
+    errs = check_splat_stream("seeded config-2 stream", *args, **kw)[0]
     rec("splat", errs["splat"], lambda: draw_cuda.splat(*args, **kw),
         lambda: draw_cuda.splat_plain(scal, *args[2:], **kw_plain(kw)),
         *splat_work(s["keym_s"], vl_s, hp, wp, 3))
@@ -732,10 +748,14 @@ def check_config4_kernels():
 
     for label, x, y, vals, alpha in reversed(cases):
         sargs = ((h, w), x, y, vals, alpha)
+        got = planes(splat_cuda.splat_accumulate(*sargs))
         err = within_channel_max(
-            f"splat_points ({label})",
-            planes(splat_cuda.splat_accumulate(*sargs)),
+            f"splat_points ({label})", got,
             planes(splat_cuda.splat_accumulate_plain(*sargs)))
+        if not torch.equal(got, planes(splat_cuda.splat_accumulate(*sargs))):
+            fail(f"splat_points ({label}): two calls on one input differ")
+        print(f"  splat_points ({label}): the same bits on two calls")
+        del got
         x0, y0 = torch.floor(x - 0.5), torch.floor(y - 0.5)
         corners = sum(((x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0)
                        & (y0 + dy < h) & (alpha != 0)).sum().item()
@@ -963,8 +983,8 @@ def by_id(sim):
 def agree(cpu, gpu, label):
     """The card's state against the CPU's: particles and the carried force
     by identity atol 1e-4; grids by the reference's cross-path tolerance
-    (1-px smoothed rtol 5e-2 / atol 2e-2, totals rtol 1e-3; float atomics
-    reorder the sums)."""
+    (1-px smoothed rtol 5e-2 / atol 2e-2, totals rtol 1e-3; the card's
+    fixed-point sums and the CPU's f32 sums round differently)."""
     def smooth(img):
         k = torch.ones(1, 1, 3, 3) / 9.0
         return torch.nn.functional.conv2d(img[:, None], k, padding=1)[:, 0]
@@ -1030,37 +1050,85 @@ def agree_io_with_plain():
     return agree(cpu, gpu, "optical-flow-driven")
 
 
-def replay(eng):
-    """K2's replay contract: the same config-2 frame twice from one
-    converted state. The frame's carried force is K4's gather from the
-    flow K3 resolves from K2's sums, decayed (a factor in [0, 1]) and
-    interpolated (weights summing to 1), so its error is held to the flow
-    velocity channels' bound."""
+def same_state(a, b, label):
+    """Every tensor of two states equal bit for bit (`torch.equal`), the
+    particles, grids and carried force among them; returns the names."""
+    names = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None and y is None:
+            continue
+        if x is None or y is None or not torch.equal(x, y):
+            d = "one side None" if x is None or y is None else (
+                f"{(x != y).sum().item()} values differ, max |d| "
+                f"{(x.double() - y.double()).abs().max().item():.3e}")
+            fail(f"replay ({label}): {f.name} differs ({d})")
+        names.append(f.name)
+    missing = {"particles", "flow", "view", "force"} - set(names)
+    if missing:
+        fail(f"replay ({label}): no {sorted(missing)} to compare")
+    return names
+
+
+def replay(eng, run, label):
+    """The replay contract: `run()`, one frame of `eng`, twice from one
+    converted state and timer; the two states must be equal bit for bit.
+    Returns the names of the tensors compared."""
     from tendrils_tpu_torch import convert
     state, t0 = convert.sim_to_numpy(eng.sim), eng.timer.time
     runs = []
     for _ in range(2):
         eng.sim = convert.sim_from_numpy(state, "cuda")
         eng.timer.time = t0
-        eng.frame()
+        run()
         runs.append(eng.sim)
     torch.cuda.synchronize()
-    a, b = runs
-    err_p = (by_id(a) - by_id(b)).abs().max().item()
-    if err_p > 1e-4:
-        fail(f"replay: particles differ by {err_p:.3e}")
-    grids = {name: within_channel_max(f"replay {name}",
-                                      getattr(a, name).reshape(4, -1),
-                                      getattr(b, name).reshape(4, -1))
-             for name in ("flow", "view")}
-    force = [s.force.cpu()[:, torch.argsort(s.idx.cpu())] for s in runs]
-    err_f = (force[0] - force[1]).abs().amax(dim=1)
-    scale = a.flow[:2].abs().reshape(2, -1).amax(dim=1).cpu()
-    if not (err_f <= 1e-5 * scale).all():
-        fail(f"replay: force max |d| {err_f.tolist()} vs flow max "
-             f"{scale.tolist()}")
-    grids["force"] = err_f.max().item()
-    return err_p, grids
+    return same_state(*runs, label)
+
+
+def replay_respawn(eng3):
+    """Phase 5 at config 3: the resident frame right after a ball respawn,
+    replayed; prints the strays and split tiles of its splat (the frame's
+    `draw_cuda.splat` call recorded, its partition re-run)."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    with_merge(eng3, False)
+    ball(eng3)
+    got = {}
+    names = replay(eng3, lambda: got.update(
+        capture_frame(eng3, 0, (draw_cuda, "splat"))),
+        "4m-respawn-stress after a respawn")
+    a, kw = got["splat"]
+    _, info, queue = draw_cuda.splat_planned(*a, **kw)
+    split = (info.reshape(-1, draw_cuda.SPLAT_INFO)[:, 6] > 1).sum().item()
+    strays = queue[1].item()
+    print(f"[5] 4m-respawn-stress, the resident frame right after a ball "
+          f"respawn, replayed: {', '.join(names)} equal bit for bit; its "
+          f"splat split {split} tiles, {strays} samples stray")
+
+
+def replay_io():
+    """Phase 5 at config 4: an io frame (camera, 4 pointers: K9) replayed
+    from one state with the same `step_draw_io` inputs (the feed's third
+    frame's, recorded)."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.feeds import IoFeed
+    from tendrils_tpu_torch.ops import cuda_lib
+    eng = models.build("optical-flow-driven")
+    feed = IoFeed(eng)
+    feed.frame(0)
+    feed.frame(1)
+    _, kw = capture_frame(eng, 0, (eng, "step_draw_io"),
+                          run=lambda: feed.frame(2))["step_draw_io"]
+    segments = len(kw["segments"][0])
+    cuda_lib.reset_counts()
+    names = replay(eng, lambda: eng.step_draw_io(**kw), "optical-flow-driven")
+    k9 = cuda_lib.launches.get("splat_points", 0)
+    if segments == 0 or k9 != 2 * K9:
+        fail(f"replay (optical-flow-driven): {segments} pointer segments, "
+             f"K9 launched {k9} times")
+    print(f"[5] optical-flow-driven io frame ({segments} pointer segments "
+          f"through K9, the camera's optical flow), replayed: "
+          f"{', '.join(names)} equal bit for bit")
 
 
 def run_config2():
@@ -1306,16 +1374,19 @@ def run_paths_b_c():
     return total
 
 
-def capture_frame(eng, frames, *targets):
-    """Run `frames` frames of `eng`, then one more whose calls of each
-    `(owner, name)` of `targets` are recorded, the last call of each:
-    `{name: (args, kwargs)}`, tensors cloned (the script wraps them in
-    place for that frame and restores them; the package never does)."""
+def capture_frame(eng, frames, *targets, run=None):
+    """Run `frames` frames of `eng`, then one more (`run`, by default
+    `eng.frame`) whose calls of each `(owner, name)` of `targets` are
+    recorded, the last call of each: `{name: (args, kwargs)}`, tensors
+    cloned, in tuples too (the script wraps them in place for that frame
+    and restores them; the package never does)."""
     for _ in range(frames):
         eng.frame()
     got = {}
 
     def clone(x):
+        if isinstance(x, tuple):
+            return tuple(map(clone, x))
         return x.clone() if isinstance(x, torch.Tensor) else x
 
     def wrap(name, fn):
@@ -1329,7 +1400,7 @@ def capture_frame(eng, frames, *targets):
     for owner, name, fn in origs:
         setattr(owner, name, wrap(name, fn))
     try:
-        eng.frame()
+        (run or eng.frame)()
     finally:
         for owner, name, fn in origs:
             setattr(owner, name, fn)
@@ -1468,10 +1539,12 @@ def check_merge_kernels():
         del inp
         if name.startswith("4m"):
             merged = not torch.equal(args[1], torch.sort(args[1])[0])
-            check_splat_stream(
+            split = check_splat_stream(
                 "sorted stream of a real config-3 frame (keys in "
                 + ("the merge's order" if merged else "the flat sort's")
-                + ")", *args, **kw)
+                + ")", *args, **kw)[2]
+            if split == 0:
+                fail("K2: the config-3 frame's stream split no tile")
         del args, kw
     check_gather_mode_packs(out)
     return out
@@ -1493,22 +1566,40 @@ def check_splat_streams():
     c = classic_streams(1 << 20, (1080, 1920), 0.01, 10, jump=0.05,
                         gather=2)
     keym_s, p1_s, vl_s, p0_s, rgba_s = c["sorted"]
-    _, strays = check_splat_stream(
+    strays = check_splat_stream(
         "classic p0 stream with long segments", c["scal"], keym_s, p1_s,
         vl_s, idx_bits=c["bits"], samples=2, grid_hw=(1080, 1920),
-        pscale=c["pscale"], p0=p0_s, rgba=rgba_s)
+        pscale=c["pscale"], p0=p0_s, rgba=rgba_s)[1]
     if strays == 0:
         fail("K2: the long-segment stream has no strays")
+
+
+def path_b_k7():
+    """K7's inputs on path B: the paused `frame()` at config 4 with the
+    demo's colour maps (262,144 rows, 720x1280), after 2 running io
+    frames."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.feeds import IoFeed
+    eng = models.build("optical-flow-driven")
+    feed = IoFeed(eng, color_maps=True)
+    feed.frame(0)
+    feed.frame(1)
+    eng.timer.paused = True
+    return capture_k7(eng, 0)
 
 
 def check_k7_real_frame():
     """Phase 3's K7 on the sorted stream of a real classic config-2 frame
     after 30 frames (flow feedback has clustered the particles; the keys
-    are the segments' tiles, so a row's p1 may lie a tile row below)."""
+    are the segments' tiles, so a row's p1 may lie a tile row below), and
+    on path B's."""
     from tendrils_tpu_torch import models
     eff, p1_s, inv_sl, inv_p = capture_k7(classic(models.build("1m-flow")),
                                           30)
     check_k7("real classic config-2 frame after 30 frames", eff, p1_s,
+             inv_sl, inv_p=inv_p)
+    eff, p1_s, inv_sl, inv_p = path_b_k7()
+    check_k7("paused config-4 frame() with colour maps (path B)", eff, p1_s,
              inv_sl, inv_p=inv_p)
 
 
@@ -1822,12 +1913,14 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
-    from tendrils_tpu_torch.ops import cuda_lib, draw_cuda
+    from tendrils_tpu_torch.ops import cuda_lib, draw_cuda, splat_cuda
     if "jax" in sys.modules:
         fail("the port imported jax")
-    if draw_cuda.SPLAT_LAUNCHES != K2:
-        fail(f"K2 launches {draw_cuda.SPLAT_LAUNCHES} kernels a call, the "
-             f"path tables count {K2}")
+    if draw_cuda.SPLAT_LAUNCHES != K2 \
+            or splat_cuda.SPLAT_POINTS_LAUNCHES != K9:
+        fail(f"K2 launches {draw_cuda.SPLAT_LAUNCHES} kernels a call and K9 "
+             f"{splat_cuda.SPLAT_POINTS_LAUNCHES}, the path tables count "
+             f"{K2} and {K9}")
 
     t0 = time.perf_counter()
     cuda_lib.library()
@@ -1845,7 +1938,7 @@ def main():
     print("[3] the K1/K2 variants with p0 and rgba8 streams, K7 and K12:")
     checks.update(check_slice3_kernels())
     print("[3] K2 on real and long-segment streams, K7 on a real classic "
-          "frame's:")
+          "frame's and path B's:")
     check_splat_streams()
     check_k7_real_frame()
     print("[3] K5 at config-3 and config-5 shapes:")
@@ -1855,17 +1948,17 @@ def main():
     checks.update(check_merge_kernels())
 
     eng, launches2 = run_config2()
-    err_p, grids = replay(eng)
-    print(f"[5] K2 replay of one config-2 frame: particles max |d| "
-          f"{err_p:.3e} (atol 1e-4), flow max |d| {grids['flow']:.3e}, view "
-          f"max |d| {grids['view']:.3e} (each channel <= 1e-5 x its max), "
-          f"force max |d| {grids['force']:.3e} (<= 1e-5 x its flow "
-          f"channel's max)")
+    names = replay(eng, eng.frame, "1m-flow")
+    print(f"[5] 1m-flow frame replayed: {', '.join(names)} equal bit for "
+          "bit")
+    del eng
+    replay_io()
     launches4 = run_config4()
     launches_a = run_path_a()
     launches_bc = run_paths_b_c()
     launches_m2 = run_merge_config2()
     eng3, launches_m3 = run_merge_config3()
+    replay_respawn(eng3)
     launches_big = run_config5_and_mode2(eng3)
     if "jax" in sys.modules:
         fail("the port imported jax")

@@ -20,7 +20,7 @@ readings of the same frame:
 
   1. wall ms/frame of the plain loop (the end-to-end number);
   2. a `torch.profiler` trace of `--frames` frames: device time by kernel
-     name, launches and copies per frame, K2's three kernels together, and
+     name, launches and copies per frame, K2's four kernels together, and
      the device's busy share of the wall time (kernel, copy and fill time
      over the traced span);
   3. each stage alone: the device synchronised before and after it, so
@@ -39,10 +39,11 @@ give them: K5 at configs 2, 3 and 5 (`chip_smoke.k5_inputs`), each
 against `F.grid_sample` in 7 alternating turns, then the host's time to
 enqueue one call of each (`host_us`), also in turns; K7 three times on each
 of the seeded classic config-2 stream, a real classic config-2 frame's
-after 30 frames and a config-3 classic frame's (gather mode 2). It needs
-only what the package has had since the gathers were first ported, so it
-also times an older tree's kernels (copy this script and `chip_smoke.py`
-into that tree).
+after 30 frames, path B's paused config-4 frame's (262,144 rows) and a
+config-3 classic frame's (gather mode 2); K8 three times on config 4's
+seeded sorted stream. It needs only what the package has had since the
+gathers were first ported, so it also times an older tree's kernels (copy
+this script and `chip_smoke.py` into that tree).
 
 It imports nothing of JAX; it needs a CUDA device.
 """
@@ -121,8 +122,8 @@ def _ok_timer(acc):
 
 def k7_streams():
     """K7's inputs `(label, eff, p1, inv_sl, inv_p)`: the seeded classic
-    config-2 stream, a real classic config-2 frame's after 30 frames, a
-    config-3 classic frame's (gather mode 2)."""
+    config-2 stream, a real classic config-2 frame's after 30 frames, path
+    B's, a config-3 classic frame's (gather mode 2)."""
     import chip_smoke as cs
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.ops import flow as flow_ops
@@ -132,11 +133,12 @@ def k7_streams():
     yield ("seeded classic config-2 stream", eff, s["sorted"][1],
            1.0 / torch.full((1,), 0.01, device="cuda"), 1.0 / s["pscale"])
     del s, eff
-    for name, frames, label in (
-            ("1m-flow", 30, "real classic config-2 frame after 30 frames"),
-            ("4m-respawn-stress", 3, "config-3 classic frame (gather mode "
-             "2)")):
-        yield (label, *cs.capture_k7(cs.classic(models.build(name)), frames))
+    yield ("real classic config-2 frame after 30 frames",
+           *cs.capture_k7(cs.classic(models.build("1m-flow")), 30))
+    yield ("paused config-4 frame() with colour maps (path B)",
+           *cs.path_b_k7())
+    yield ("config-3 classic frame (gather mode 2)",
+           *cs.capture_k7(cs.classic(models.build("4m-respawn-stress")), 3))
 
 
 def host_us(fn, calls=200):
@@ -154,10 +156,10 @@ def host_us(fn, calls=200):
 
 
 def profile_gathers():
-    """`--gathers`: K5 and K7 alone, by device time."""
+    """`--gathers`: K5, K7 and K8 alone, by device time."""
     import chip_smoke as cs
-    from tendrils_tpu_torch.ops import gather_cuda
-    print(f"K5 and K7 alone on {torch.cuda.get_device_name(0)}")
+    from tendrils_tpu_torch.ops import flow as flow_ops, gather_cuda
+    print(f"K5, K7 and K8 alone on {torch.cuda.get_device_name(0)}")
     for name in ("1m-flow", "4m-respawn-stress", "16m-live-show"):
         eff, x, y = cs.k5_inputs(name)
         print(f"K5 at {name}: {x.numel()} points, grid {tuple(eff.shape)}")
@@ -182,6 +184,14 @@ def profile_gathers():
               f"{', '.join(f'{t:.4f}' for t in ms)})")
         del eff, p1
         torch.cuda.empty_cache()
+    s = cs.sorted_streams(512 * 512, (720, 1280), 0.01, 1)
+    eff = flow_ops.flow_decayed(cs.random_flow((720, 1280), 1000.0),
+                                1000.0 + cs.DT, 0.005).contiguous()
+    ms = [cs.time_calls(lambda: gather_cuda.bilinear_gather_keyed_p1(
+        eff, s["p1_s"], inv_p=1.0 / s["pscale"]))[0] for _ in range(3)]
+    print(f"K8 on config 4's seeded sorted stream (262144 rows): device "
+          f"{statistics.median(ms):.4f} ms (3 timings: "
+          f"{', '.join(f'{t:.4f}' for t in ms)})")
 
 
 def main():
@@ -263,12 +273,13 @@ def main():
         print(f"    {ms / n:8.4f} ms/frame  {calls[key] / n:6.1f}/frame  "
               f"{key[:90]}")
     k2 = {k: sum(ms for key, ms in dev.items() if f"splat_{k}_kernel" in key)
-          for k in ("plan", "tile", "stray")}
+          for k in ("plan", "tile", "stray", "convert")}
     k2_calls = sum(c for key, c in calls.items()
                    if any(f"splat_{k}_kernel" in key for k in k2))
     print(f"    {sum(k2.values()) / n:8.4f} ms/frame  {k2_calls / n:6.1f}/frame"
           f"  K2 splat in all (plan {k2['plan'] / n:.4f}, tile pass "
-          f"{k2['tile'] / n:.4f}, stray pass {k2['stray'] / n:.4f})")
+          f"{k2['tile'] / n:.4f}, stray pass {k2['stray'] / n:.4f}, "
+          f"conversion {k2['convert'] / n:.4f})")
 
     acc = collections.Counter()
     patched = _stage_timers(acc)

@@ -1,7 +1,7 @@
 // Shared constants and device helpers of the port's kernels.
 //
-// Every kernel here is a plain one-thread-per-item CUDA C++ kernel for
-// Hopper (sm_90a). The library is compiled with --fmad=false: several
+// Every kernel here is a hand-written CUDA C++ kernel for Hopper (sm_90a).
+// The library is compiled with --fmad=false: several
 // outputs (the packed words and tile keys of pack.cu) must match the plain
 // PyTorch versions bit for bit, and a contracted multiply-add would round
 // differently from the separate multiply and add those versions execute.
@@ -157,6 +157,38 @@ __device__ __forceinline__ void reconstruct_row(int i, int n, float sl,
   prev[n + i] = alive ? y - nvy : y;
   prev[2 * n + i] = nvx;
   prev[3 * n + i] = nvy;
+}
+
+// --- fixed-point sums (K2, K9) ---------------------------------------------
+//
+// The splats add their deposits as int64 fixed point: integer adds are
+// associative, so the sums, and the f32 grids converted from them, do not
+// depend on the order in which threads add. Channel k's deposit v becomes
+// q = rint(v * 2^S_k), S_k the largest shift with bound_k * adds * 2^S_k <=
+// 2^FIX_BITS, where bound_k is the largest |v| one add of the channel can
+// have and `adds` the most adds one texel can receive; so no texel's sum
+// leaves int64. 2^S_k is a power of two, so v * 2^S_k is exact and only the
+// rounding to an integer quantises; the sum converts back as
+// f32(sum) * 2^-S_k, rounded once.
+constexpr int FIX_BITS = 62;
+// |S| stays within f32's normal exponents, so 2^S and 2^-S are exact.
+constexpr int FIX_CAP = 126;
+
+__device__ __forceinline__ int fixed_shift(float bound, long long adds) {
+  int e;
+  // bound * adds < 2^e (frexp's mantissa is in [0.5, 1)); the product of a
+  // float and an integer below 2^29 is exact in double.
+  frexp((double)fabsf(bound) * (double)adds, &e);
+  return min(max(FIX_BITS - e, -FIX_CAP), FIX_CAP);
+}
+
+// 2^s for |s| <= FIX_CAP, exactly.
+__device__ __forceinline__ float pow2f(int s) {
+  return __int_as_float((s + 127) << 23);
+}
+
+__device__ __forceinline__ long long quantise(float v, float scale) {
+  return __float2ll_rn(v * scale);
 }
 
 inline int blocks_for(long long n) {

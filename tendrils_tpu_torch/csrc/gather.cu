@@ -14,11 +14,11 @@
 // K4, one thread per sorted row: unpack the fixed-point p1 word, clamp it
 // to the content edge, bilinearly sample the 2-channel decayed flow `eff`
 // (content layout) there — the next step's force — and rebuild the row's
-// particle state. K8 is K4's gather half alone (C channels) and K6 its
-// reassembly half alone; the resident frame runs them apart when flow is
-// injected between the draw and the gather. All three call the same
-// device functions (common.cuh: bilerp_p1, reconstruct_row), so K4 equals
-// K8 + K6 bit for bit.
+// particle state. K8 is K4's gather half alone (C channels, in K7's
+// blocks) and K6 its reassembly half alone; the resident frame runs them
+// apart when flow is injected between the draw and the gather. All three
+// call the same device functions (common.cuh: bilerp_p1,
+// reconstruct_row), so K4 equals K8 + K6 bit for bit.
 // K5: CLAMP_TO_EDGE bilinear sampling of a C-channel grid at arbitrary f32
 // texel coords (contract: ops/sample.bilinear_sample). For each pair of
 // channels `interleave_pair_kernel` copies the pair's planes into one
@@ -27,11 +27,16 @@
 // load: random points cost L2 sectors, and the pair shares one
 // (PERF.md section 6 has the variants that were timed). An odd last
 // channel is gathered from its plane (`bilinear_gather_kernel`).
-// K7, one thread per sorted row: K8's gather of the 2-channel decayed flow,
-// then the force packed as two q15 fields over +-speedLimit, y << 15 | x
-// (gather_pallas.py:222-232), the one word the non-resident frame un-sorts
-// into row order. `inv_sl` is a device scalar, 1 / max(speedLimit, 1e-12)
-// in f32 as the engine computes it.
+// K7: K8's gather of the 2-channel decayed flow, then the force packed as
+// two q15 fields over +-speedLimit, y << 15 | x (gather_pallas.py:222-232),
+// the one word the non-resident frame un-sorts into row order. `inv_sl` is
+// a device scalar, 1 / max(speedLimit, 1e-12) in f32 as the engine
+// computes it. K7 and K8 run in blocks of KEYED_THREADS threads over
+// KEYED_THREADS x r consecutive sorted rows (r = 1..8, from n and the
+// card's SMs: `gather_cuda.keyed_layout`), so one SM's L1 serves one
+// stretch of tiles, where blocks of 256 rows scattered each SM's reads
+// over several distant tiles; no shared memory (staging the rows' tile
+// region there was slower in every form timed, PERF.md section 6).
 // K12, one thread per point: the gather on padded-grid float coords (x +
 // PAD_LO_W, y + PAD_LO_H), with the TPU kernel's arithmetic: weights 1 -
 // frac and 1 - that, summed per row then across rows; a corner outside the
@@ -84,16 +89,30 @@ __global__ void reconstruct_kernel(const float* __restrict__ npx,
   reconstruct_row(i, n, sl_ptr[0], npx[i], npy[i], vlw[i], part, prev);
 }
 
-__global__ void gather_keyed_p1_kernel(const float* __restrict__ grid, int c,
-                                       int h, int w,
-                                       const int* __restrict__ p1w, int n,
-                                       float inv_p, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Bilerp b = bilerp_p1(h, w, p1w[i], inv_p);
+// K7 and K8: a block of KEYED_THREADS threads takes KEYED_THREADS x r
+// consecutive sorted rows (`span`), so one SM's L1 serves one stretch of
+// tiles; blocks stride over the spans past the first two waves. Thread j
+// takes rows base + j + k x KEYED_THREADS, k < r: a warp's loads and
+// stores are coalesced (a run of r consecutive rows a thread was slower,
+// PERF.md section 6).
+constexpr int KEYED_THREADS = 1024;
+
+__global__ void __launch_bounds__(KEYED_THREADS, 2)
+    gather_keyed_p1_kernel(const float* __restrict__ grid, int c, int h,
+                           int w, const int* __restrict__ p1w, int n, int r,
+                           float inv_p, float* __restrict__ out) {
+  const long long span = (long long)KEYED_THREADS * r;
   const long long plane = (long long)h * w;
-  for (int k = 0; k < c; ++k) {
-    out[(long long)k * n + i] = bilerp(grid + k * plane, b);
+  for (long long base = blockIdx.x * span; base < n;
+       base += gridDim.x * span) {
+    for (int k = 0; k < r; ++k) {
+      const long long i = base + threadIdx.x + (long long)k * KEYED_THREADS;
+      if (i >= n) break;
+      const Bilerp b = bilerp_p1(h, w, p1w[i], inv_p);
+      for (int ch = 0; ch < c; ++ch) {
+        out[(long long)ch * n + i] = bilerp(grid + ch * plane, b);
+      }
+    }
   }
 }
 
@@ -141,18 +160,24 @@ __device__ __forceinline__ int q15_force(float v, float inv_sl) {
   return (int)rintf(t * (float)HALF);
 }
 
-__global__ void gather_keyed_q15_kernel(const float* __restrict__ eff, int h,
-                                        int w, const int* __restrict__ p1w,
-                                        const float* __restrict__ inv_sl_ptr,
-                                        int n, float inv_p,
-                                        int* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Bilerp b = bilerp_p1(h, w, p1w[i], inv_p);
+__global__ void __launch_bounds__(KEYED_THREADS, 2)
+    gather_keyed_q15_kernel(const float* __restrict__ eff, int h, int w,
+                            const int* __restrict__ p1w,
+                            const float* __restrict__ inv_sl_ptr, int n,
+                            int r, float inv_p, int* __restrict__ out) {
   const float inv_sl = inv_sl_ptr[0];
-  const float fx = bilerp(eff, b);
-  const float fy = bilerp(eff + (long long)h * w, b);
-  out[i] = q15_force(fy, inv_sl) * (HALF + 1) + q15_force(fx, inv_sl);
+  const long long span = (long long)KEYED_THREADS * r;
+  for (long long base = blockIdx.x * span; base < n;
+       base += gridDim.x * span) {
+    for (int k = 0; k < r; ++k) {
+      const long long i = base + threadIdx.x + (long long)k * KEYED_THREADS;
+      if (i >= n) break;
+      const Bilerp b = bilerp_p1(h, w, p1w[i], inv_p);
+      const float fx = bilerp(eff, b);
+      const float fy = bilerp(eff + (long long)h * w, b);
+      out[i] = q15_force(fy, inv_sl) * (HALF + 1) + q15_force(fx, inv_sl);
+    }
+  }
 }
 
 // Texel (r, c) of a plane, or 0 outside the content.
@@ -218,13 +243,15 @@ extern "C" int tt_reconstruct(const float* npx, const float* npy,
   return (int)cudaGetLastError();
 }
 
+// K8 and K7: `r` rows a thread, `blocks` blocks of KEYED_THREADS
+// (`gather_cuda.keyed_layout`).
 extern "C" int tt_gather_keyed_p1(const float* grid, int c, int h, int w,
-                                  const int* p1, int n, float inv_p,
-                                  float* out, void* stream) {
+                                  const int* p1, int n, int r, int blocks,
+                                  float inv_p, float* out, void* stream) {
   if (n > 0) {
-    gather_keyed_p1_kernel<<<blocks_for(n), THREADS, 0,
+    gather_keyed_p1_kernel<<<blocks, KEYED_THREADS, 0,
                              (cudaStream_t)stream>>>(grid, c, h, w, p1, n,
-                                                     inv_p, out);
+                                                     r, inv_p, out);
   }
   return (int)cudaGetLastError();
 }
@@ -257,11 +284,12 @@ extern "C" int tt_bilinear_gather(const float* grid, int c, int h, int w,
 
 extern "C" int tt_gather_keyed_q15(const float* eff, int h, int w,
                                    const int* p1, const float* inv_sl, int n,
-                                   float inv_p, int* out, void* stream) {
+                                   int r, int blocks, float inv_p, int* out,
+                                   void* stream) {
   if (n > 0) {
-    gather_keyed_q15_kernel<<<blocks_for(n), THREADS, 0,
+    gather_keyed_q15_kernel<<<blocks, KEYED_THREADS, 0,
                               (cudaStream_t)stream>>>(eff, h, w, p1, inv_sl,
-                                                      n, inv_p, out);
+                                                      n, r, inv_p, out);
   }
   return (int)cudaGetLastError();
 }

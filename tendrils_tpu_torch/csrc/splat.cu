@@ -11,50 +11,61 @@
 // sample centre quantised to 1/pscale px. Its separable box footprints
 // (width flowWidth for the 5 flow channels, lineWidth for the 6 view
 // channels, each <= KMAX_WIDTH, so at most 9 x 9 texels) add into the
-// PADDED f32[11, hp, wp] accumulator, the layout the resolve reads.
+// PADDED [11, hp, wp] grid, the layout the resolve reads.
+//
+// The sums are int64 fixed point (common.cuh: `fixed_shift`): each deposit
+// (wr * ch) * wc, computed in f32 as before, is quantised at a power-of-two
+// scale per channel and added as an integer, so the accumulator does not
+// depend on the order of the adds and a frame replays bit for bit. The
+// scale comes from the most one add of a channel can weigh (`add_bound`)
+// and the most adds one texel can receive, n x samples (a sample adds once
+// to each texel of its box).
 //
 // Bound: deposits. At config 2 that is ~2M samples x (36 texels x 5 flow
 // channels + 4 texels x 6 view channels) ~ 4.3e8 adds a frame. Added with
-// float atomics straight into global memory they take 6.4 ms of the frame
-// (an H100 at 700 W); this kernel adds them in shared memory, on the
+// atomics straight into global memory they take 6.4 ms of the frame (an
+// H100 at 700 W); this kernel adds them in shared memory, on the
 // reference's own contract (draw_pallas.py:82-85, :255-263): the segments
 // arrive sorted by a key whose tile is the top-left corner of their
 // bounding box, and a sample whose footprint lies inside that key tile's
 // REGION_H x REGION_W region (from the tile's origin) only touches the
-// 2 x 2 output tiles (ty..ty+1, tx..tx+1). Three launches, stream-ordered:
+// 2 x 2 output tiles (ty..ty+1, tx..tx+1). Four launches, stream-ordered:
 //
 //   1. `splat_plan_kernel`, one block per output tile: binary-searches the
 //      sorted keys for the rows of its <= 4 source tiles (ty-1..ty,
 //      tx-1..tx; two contiguous runs), splits a tile whose rows weigh more
 //      than `chunk` (INFO: a clustered tile's own rows are its work) into
 //      parts, queues them (their blocks run first, so a heavy tile is not
-//      the tail) and zeroes the split tile's texels. (Searching in the
-//      wrapper instead, with `torch.searchsorted`, left the tile pass 0.1
-//      ms slower in a config-2 frame on an H100, for reasons not found.)
+//      the tail) and zeroes the split tile's texels of the int64 scratch.
+//      (Searching in the wrapper instead, with `torch.searchsorted`, left
+//      the tile pass 0.1 ms slower in a config-2 frame on an H100, for
+//      reasons not found.)
 //   2. `splat_tile_kernel`, one block per (tile part, channel group): zeroes
-//      its tile in shared memory (16 x 256 texels x 5 or 6 channels, 84 or
-//      101 KB, rows padded to 264 floats), deposits every FITTING sample of
-//      its rows into the texels of its own tile with shared-memory
-//      atomics, and writes the tile out with 16-byte stores (a split tile:
-//      coalesced global atomics into the zeroed tile). Every texel of the
-//      accumulator is written, so nothing zeroes it first. A warp gathers
+//      its tile in shared memory (16 x 256 int64 texels a channel, rows
+//      padded to 260 words), deposits every FITTING sample of its rows into
+//      the texels of its own tile with shared-memory integer atomics, and
+//      writes the tile into the int64 scratch with 16-byte stores (a split
+//      tile: global 64-bit atomics into the zeroed tile). Every texel of
+//      the scratch is written, so nothing zeroes it first. A warp gathers
 //      its depositing samples and puts ks lanes on each, one a footprint
 //      column (ks = 6 at flowWidth 5, so 5 samples a round; 16 at
 //      lineWidth 1), each walking its column's rows: a sample's adds fall
 //      on distinct texels at once, where one sample a lane put
 //      neighbouring sorted samples on the same texels (1.4x slower on an
-//      H100). Bound here: the shared adds, which are compare-and-swap
-//      loops (ATOMS.CAST.SPIN), and their bank conflicts;
+//      H100). Bound here: the shared adds and their bank conflicts. Hopper
+//      has no shared float add and no shared 64-bit integer add (each is a
+//      compare-and-swap loop, ATOMS.CAST.SPIN and ATOMS.CAST.SPIN.64), so
+//      a deposit is two native 32-bit adds (`add64`);
 //   3. `splat_stray_kernel`, one thread per (segment, sample): the samples
 //      that do NOT fit their key tile's region (long segments, such as a p0
-//      far from p1 after a respawn) with global atomicAdd, counted.
+//      far from p1 after a respawn) with global 64-bit atomics, counted;
+//   4. `splat_convert_kernel`, one thread per 4 texels: the scratch to the
+//      f32 accumulator, f32(sum) * 2^-S_k, coalesced.
 //
 // Every sample is deposited once, by pass 2 or pass 3; the fit test
 // (`fits_key_tile`) reads the tile from the sorted key itself, as the
 // plan's searches do, so the run a row is found in and the region its fit
-// is tested against cannot disagree. Sums are f32 (the TPU's matmul operands
-// are bf16); shared and global float atomics add in an order that changes
-// from run to run, so the accumulator is not bit-reproducible.
+// is tested against cannot disagree.
 #include "common.cuh"
 
 namespace {
@@ -62,13 +73,18 @@ namespace {
 using namespace tt;
 
 constexpr int N_VIEW = N_CHAN - N_FLOW;
-constexpr int TILE_THREADS = 512;
+// The tile pass: one block of TILE_THREADS an SM (its 200 KB tile leaves
+// room for no second), so the block has every warp the SM can hold.
+constexpr int TILE_THREADS = 1024;
 constexpr int PLAN_THREADS = 256;
-// Shared tile rows, padded by 8 floats: the rows of a footprint start 8
-// banks apart; 16-byte aligned for the vector stores.
-constexpr int SROW = TILE_W + 8;
+constexpr int CONVERT_THREADS = 256;
+// Shared tile rows of int64 texels, padded by 4 words: the rows of a
+// footprint start 8 banks apart; 16-byte aligned for the vector stores.
+// The tile holds the wider channel group, the view's 6 channels.
+constexpr int SROW = TILE_W + 4;
 constexpr int SPLANE = TILE_H * SROW;
-constexpr int TILE_SMEM = N_VIEW * SPLANE * (int)sizeof(float);  // 101,376 B
+constexpr int TILE_SMEM =
+    N_VIEW * SPLANE * (int)sizeof(long long);  // 199,680 B
 // Per-tile plan words: the starts of its source tiles' runs, above-left,
 // above, left and its own, and their end (a0, am, a1, b0, bm, b1), the
 // parts and the weighted rows w. A part's work is the samples that land
@@ -89,6 +105,36 @@ struct Params {
   int n, samples, h, w, hp, wp, tiles_x, bits;
   float pscale;
 };
+
+// The most one add of global channel k can weigh, from `group_channels`
+// (the box weights wr <= 1 / width <= 1 and wc <= 1 only shrink it): flow
+// vx.a and vy.a speedLimit (|unq15| <= 1, a < 1), wf.a and a 1, the logs
+// LOG_BOUND (a <= 1 - 1e-4); view r.a, g.a, b.a and a.a COLOR_MAX (each
+// colour clamped or decoded into [0, COLOR_MAX]), a 1, the log LOG_BOUND.
+constexpr float LOG_BOUND = 9.22f;  // > -log(1e-4) = 9.2103
+
+__device__ __forceinline__ float add_bound(const float* scal, int k) {
+  switch (k) {
+    case 0:
+    case 1:
+      return fabsf(scal[0]);
+    case 2:
+    case 3:
+    case N_FLOW + 4:
+      return 1.0f;
+    case 4:
+    case N_CHAN - 1:
+      return LOG_BOUND;
+    default:
+      return COLOR_MAX;
+  }
+}
+
+// S_k of global channel k for a stream of n segments x samples.
+__device__ __forceinline__ int channel_shift(const float* scal, int k, int n,
+                                             int samples) {
+  return fixed_shift(add_bound(scal, k), (long long)n * samples);
+}
 
 // Box-overlap coverage of texel `idx` by the footprint [lo, hi).
 __device__ __forceinline__ float cover(float idx, float lo, float hi) {
@@ -264,7 +310,7 @@ __global__ void splat_plan_kernel(const int* __restrict__ keys, int n,
                                   int chunk,
                                   int* __restrict__ info,
                                   int* __restrict__ queue, int queue_cap,
-                                  float* __restrict__ acc) {
+                                  long long* __restrict__ fix) {
   const int t = blockIdx.x;
   const int ty = t / tiles_x;
   const int tx = t - ty * tiles_x;
@@ -308,14 +354,14 @@ __global__ void splat_plan_kernel(const int* __restrict__ keys, int n,
   if (parts_s == 1) return;
   // A split tile: its parts add into it with global atomics, so zero it.
   const long long plane = (long long)hp * wp;
-  float* tile0 = acc + (long long)(ty * TILE_H) * wp + tx * TILE_W;
-  constexpr int Q = TILE_W / 4;
+  long long* tile0 = fix + (long long)(ty * TILE_H) * wp + tx * TILE_W;
+  constexpr int Q = TILE_W / 2;  // 16-byte stores of two texels
   for (int k = threadIdx.x; k < N_CHAN * TILE_H * Q; k += blockDim.x) {
-    const int c4 = k % Q;
+    const int c2 = k % Q;
     const int r = (k / Q) % TILE_H;
     const int ch = k / (Q * TILE_H);
-    *reinterpret_cast<float4*>(tile0 + ch * plane + (long long)r * wp +
-                               4 * c4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<longlong2*>(tile0 + ch * plane + (long long)r * wp +
+                                  2 * c2) = make_longlong2(0, 0);
   }
 }
 
@@ -357,23 +403,29 @@ __device__ __forceinline__ Box box_of(float gx, float gy, float hw) {
   return b;
 }
 
-// Add v[0..NCH) into the NCH planes of shared texel t. Hopper has no
-// shared-memory float add: each atomicAdd is a compare-and-swap loop
-// (ATOMS.CAST.SPIN), still cheaper than one 64-bit compare-and-swap a
-// channel pair or a loop of our own with every channel in flight.
-template <int NCH>
-__device__ __forceinline__ void add_texel(float* t, const float* v) {
-#pragma unroll
-  for (int k = 0; k < NCH; ++k) atomicAdd(t + k * SPLANE, v[k]);
+// Add q into the int64 shared texel p, exactly, whatever the order of the
+// adds: two native 32-bit adds (ATOMS.ADD), the low word's, whose old
+// value gives the carry into the high word (old + lo wraps below old), and
+// the high word's, skipped when it adds 0. The low words' carries are
+// counted in full, so the 64-bit sum is exact.
+__device__ __forceinline__ void add64(unsigned long long* p, long long q) {
+  unsigned* w = reinterpret_cast<unsigned*>(p);
+  const unsigned lo = (unsigned)q;
+  unsigned hi = (unsigned)((unsigned long long)q >> 32);
+  if (lo != 0u) {
+    const unsigned old = atomicAdd(w, lo);
+    hi += (old + lo < old) ? 1u : 0u;
+  }
+  if (hi != 0u) atomicAdd(w + 1, hi);
 }
 
-// Column dx of box b, channels ch, into the shared tile at (row0, col0):
-// the texels of that column that lie in the tile, row by row.
+// Column dx of box b, channels ch (quantised at `scale`), into the NCH
+// planes of the shared tile at (row0, col0): the texels of that column
+// that lie in the tile, row by row.
 template <int NCH>
-__device__ __forceinline__ void tile_column(float* __restrict__ sm,
-                                            const float* ch, const Box& b,
-                                            int dx, float inv_w, int row0,
-                                            int col0) {
+__device__ __forceinline__ void tile_column(
+    unsigned long long* __restrict__ sm, const float* ch, const float* scale,
+    const Box& b, int dx, float inv_w, int row0, int col0) {
   const float cf = b.c0 + (float)dx;
   const int c = (int)cf - col0;
   const float wc = cover(cf, b.lo_x, b.hi_x);
@@ -384,24 +436,33 @@ __device__ __forceinline__ void tile_column(float* __restrict__ sm,
     if (r < 0 || r >= TILE_H) continue;
     const float wr = cover(rf, b.lo_y, b.hi_y) * inv_w;
     if (wr <= 0.0f) continue;
-    float v[NCH];
+    unsigned long long* t = sm + r * SROW + c;
 #pragma unroll
-    for (int k = 0; k < NCH; ++k) v[k] = (wr * ch[k]) * wc;
-    add_texel<NCH>(sm + r * SROW + c, v);
+    for (int k = 0; k < NCH; ++k) {
+      add64(t + k * SPLANE, quantise((wr * ch[k]) * wc, scale[k]));
+    }
   }
 }
 
+// One tile part's channel group NCH (N_FLOW: the flow's, N_VIEW: the
+// view's), into `fix` at the group's first plane.
 template <int NCH>
 __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
                                           const int* __restrict__ info,
-                                          float* __restrict__ sm,
-                                          float* __restrict__ acc) {
+                                          unsigned long long* __restrict__ sm,
+                                          long long* __restrict__ fix) {
   const int ty = t / P.tiles_x;
   const int row0 = ty * TILE_H;
   const int col0 = (t - ty * P.tiles_x) * TILE_W;
-  float4* sm4 = reinterpret_cast<float4*>(sm);
-  for (int k = threadIdx.x; k < NCH * SPLANE / 4; k += blockDim.x) {
-    sm4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  longlong2* sm2 = reinterpret_cast<longlong2*>(sm);
+  for (int k = threadIdx.x; k < NCH * SPLANE / 2; k += blockDim.x) {
+    sm2[k] = make_longlong2(0, 0);
+  }
+  float scale[NCH];
+#pragma unroll
+  for (int k = 0; k < NCH; ++k) {
+    scale[k] = pow2f(channel_shift(P.scal, (NCH == N_FLOW ? 0 : N_FLOW) + k,
+                                   P.n, P.samples));
   }
   __syncthreads();
 
@@ -448,7 +509,7 @@ __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
               group_channels<NCH>(P, i, g, ch);
         if (dep && b.nc > ks) {
           for (int dx = 0; dx < b.nc; ++dx) {
-            tile_column<NCH>(sm, ch, b, dx, inv_w, row0, col0);
+            tile_column<NCH>(sm, ch, scale, b, dx, inv_w, row0, col0);
           }
           dep = false;
         }
@@ -472,31 +533,31 @@ __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
       if (act) {
         const Box b = box_of(sgx, sgy, hw);
         if (dcol < b.nc) {
-          tile_column<NCH>(sm, sch, b, dcol, inv_w, row0, col0);
+          tile_column<NCH>(sm, sch, scale, b, dcol, inv_w, row0, col0);
         }
       }
     }
   }
   __syncthreads();
 
-  // Write the tile out: 16-byte stores, or coalesced atomics into a split
-  // (zeroed) tile.
+  // Write the tile out: 16-byte stores, or coalesced 64-bit atomics into a
+  // split (zeroed) tile.
   const long long plane = (long long)P.hp * P.wp;
-  float* tile0 = acc + (long long)row0 * P.wp + col0;
-  constexpr int Q = TILE_W / 4;
+  long long* tile0 = fix + (long long)row0 * P.wp + col0;
+  constexpr int Q = TILE_W / 2;
   for (int k = threadIdx.x; k < NCH * TILE_H * Q; k += blockDim.x) {
-    const int c4 = k % Q;
+    const int c2 = k % Q;
     const int r = (k / Q) % TILE_H;
     const int c = k / (Q * TILE_H);
-    const float4 v = sm4[(c * SPLANE + r * SROW) / 4 + c4];
-    float* dst = tile0 + c * plane + (long long)r * P.wp + 4 * c4;
+    const longlong2 v = sm2[(c * SPLANE + r * SROW) / 2 + c2];
+    long long* dst = tile0 + c * plane + (long long)r * P.wp + 2 * c2;
     if (parts == 1) {
-      *reinterpret_cast<float4*>(dst) = v;
+      *reinterpret_cast<longlong2*>(dst) = v;
     } else {
-      atomicAdd(dst, v.x);
-      atomicAdd(dst + 1, v.y);
-      atomicAdd(dst + 2, v.z);
-      atomicAdd(dst + 3, v.w);
+      atomicAdd(reinterpret_cast<unsigned long long*>(dst),
+                (unsigned long long)v.x);
+      atomicAdd(reinterpret_cast<unsigned long long*>(dst) + 1,
+                (unsigned long long)v.y);
     }
   }
 }
@@ -505,12 +566,12 @@ __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
 // the heavy work starts early; the unused ones exit), blocks [queue_cap,
 // queue_cap + tiles) the tiles that are not split. blockIdx.y: the
 // channel group (0 flow, 1 view).
-__global__ void __launch_bounds__(TILE_THREADS, 2)
+__global__ void __launch_bounds__(TILE_THREADS, 1)
     splat_tile_kernel(Params P, const int* __restrict__ info,
                       const int* __restrict__ queue, int queue_cap,
-                      float* __restrict__ acc) {
-  extern __shared__ float4 smem[];
-  float* sm = reinterpret_cast<float*>(smem);
+                      long long* __restrict__ fix) {
+  extern __shared__ longlong2 smem[];
+  unsigned long long* sm = reinterpret_cast<unsigned long long*>(smem);
   const int b = blockIdx.x;
   int t = b - queue_cap, part = 0;
   if (b < queue_cap) {
@@ -521,20 +582,21 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
     return;
   }
   if (blockIdx.y == 0) {
-    tile_body<N_FLOW>(P, t, part, info, sm, acc);
+    tile_body<N_FLOW>(P, t, part, info, sm, fix);
   } else {
     tile_body<N_VIEW>(P, t, part, info, sm,
-                      acc + N_FLOW * (long long)P.hp * P.wp);
+                      fix + N_FLOW * (long long)P.hp * P.wp);
   }
 }
 
 // --- pass 3: the strays ------------------------------------------------------
 
-// Add chans[0..nch) x box(width 2*hw) around (gx, gy) into nch planes of
-// the global accumulator.
+// Add chans[0..nch) x box(width 2*hw) around (gx, gy), quantised at
+// `scale`, into nch planes of the global int64 scratch.
 template <int NCH>
-__device__ __forceinline__ void deposit(float* __restrict__ acc, int hp,
-                                        int wp, const float* chans, float gx,
+__device__ __forceinline__ void deposit(long long* __restrict__ fix, int hp,
+                                        int wp, const float* chans,
+                                        const float* scale, float gx,
                                         float gy, float hw, float inv_w) {
   const float lo_y = gy + (0.5f - hw);
   const float hi_y = gy + (0.5f + hw);
@@ -553,17 +615,19 @@ __device__ __forceinline__ void deposit(float* __restrict__ acc, int hp,
       const float wc = cover(cf, lo_x, hi_x);
       const int c = (int)cf;
       if (wc <= 0.0f || c < 0 || c >= wp) continue;
-      float* texel = acc + (long long)r * wp + c;
+      unsigned long long* texel =
+          reinterpret_cast<unsigned long long*>(fix) + (long long)r * wp + c;
 #pragma unroll
       for (int k = 0; k < NCH; ++k) {
-        atomicAdd(texel + k * plane, (wr * chans[k]) * wc);
+        atomicAdd(texel + k * plane, (unsigned long long)quantise(
+                                         (wr * chans[k]) * wc, scale[k]));
       }
     }
   }
 }
 
 __global__ void splat_stray_kernel(Params P, int* __restrict__ strays,
-                                   float* __restrict__ acc) {
+                                   long long* __restrict__ fix) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)P.n * P.samples) return;
   const int i = (int)(t / P.samples);
@@ -572,17 +636,43 @@ __global__ void splat_stray_kernel(Params P, int* __restrict__ strays,
   if (!sample_geo(P, i, s, g)) return;
   if (fits_key_tile(P, P.keys[i], g.gx, g.gy, half_widest(P.scal))) return;
   atomicAdd(strays, 1);
-  float ch[N_VIEW];
+  float ch[N_VIEW], scale[N_VIEW];
   if (group_channels<N_FLOW>(P, i, g, ch)) {
     const float width = group_width<N_FLOW>(P.scal);
-    deposit<N_FLOW>(acc, P.hp, P.wp, ch, g.gx, g.gy, width * 0.5f,
+    for (int k = 0; k < N_FLOW; ++k) {
+      scale[k] = pow2f(channel_shift(P.scal, k, P.n, P.samples));
+    }
+    deposit<N_FLOW>(fix, P.hp, P.wp, ch, scale, g.gx, g.gy, width * 0.5f,
                     1.0f / width);
   }
   if (group_channels<N_VIEW>(P, i, g, ch)) {
     const float width = group_width<N_VIEW>(P.scal);
-    deposit<N_VIEW>(acc + N_FLOW * (long long)P.hp * P.wp, P.hp, P.wp, ch,
-                    g.gx, g.gy, width * 0.5f, 1.0f / width);
+    for (int k = 0; k < N_VIEW; ++k) {
+      scale[k] = pow2f(channel_shift(P.scal, N_FLOW + k, P.n, P.samples));
+    }
+    deposit<N_VIEW>(fix + N_FLOW * (long long)P.hp * P.wp, P.hp, P.wp, ch,
+                    scale, g.gx, g.gy, width * 0.5f, 1.0f / width);
   }
+}
+
+// --- pass 4: the conversion --------------------------------------------------
+
+// Thread i converts texels 4i..4i+3 of the flat [N_CHAN, hp, wp] scratch
+// (a plane holds plane4 groups of 4).
+__global__ void splat_convert_kernel(const float* __restrict__ scal, int n,
+                                     int samples, int plane4,
+                                     const long long* __restrict__ fix,
+                                     float* __restrict__ acc) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)N_CHAN * plane4) return;
+  const float inv = pow2f(-channel_shift(scal, (int)(i / plane4), n,
+                                          samples));
+  const longlong2* src = reinterpret_cast<const longlong2*>(fix) + 2 * i;
+  const longlong2 a = __ldcs(src);
+  const longlong2 b = __ldcs(src + 1);
+  reinterpret_cast<float4*>(acc)[i] = make_float4(
+      __ll2float_rn(a.x) * inv, __ll2float_rn(a.y) * inv,
+      __ll2float_rn(b.x) * inv, __ll2float_rn(b.y) * inv);
 }
 
 Params make_params(const float* scal, const int* keys, const int* p1,
@@ -597,16 +687,17 @@ Params make_params(const float* scal, const int* keys, const int* p1,
 
 // Pass 1. `keys`: i32[n], tile-sorted, `tile << bits | id`; `info`:
 // i32[INFO x tiles]; `queue`: i32[QUEUE_HEAD + 2 x queue_cap]; `chunk`:
-// the most weighted rows a part takes.
+// the most weighted rows a part takes; `fix`: the int64 [N_CHAN, hp, wp]
+// scratch.
 extern "C" int tt_splat_plan(const int* keys, int n, int bits, int hp, int wp,
                              int chunk, int* info, int* queue, int queue_cap,
-                             float* accum, void* stream) {
+                             long long* fix, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaMemsetAsync(queue, 0, QUEUE_HEAD * sizeof(int), s);
   const int tiles = (hp / TILE_H) * (wp / TILE_W);
   splat_plan_kernel<<<tiles, PLAN_THREADS, 0, s>>>(
       keys, n, bits, wp / TILE_W, hp, wp, chunk, info, queue, queue_cap,
-      accum);
+      fix);
   return (int)cudaGetLastError();
 }
 
@@ -616,7 +707,7 @@ extern "C" int tt_splat_tiles(const float* scal, const int* keys,
                               const int* rgba, int n, int samples, int h,
                               int w, int hp, int wp, int bits, float pscale,
                               const int* info, const int* queue,
-                              int queue_cap, float* accum, void* stream) {
+                              int queue_cap, long long* fix, void* stream) {
   const Params P = make_params(scal, keys, p1, vl, p0, rgba, n, samples, h,
                                w, hp, wp, bits, pscale);
   const dim3 grid(queue_cap + (hp / TILE_H) * (wp / TILE_W), 2);
@@ -625,7 +716,7 @@ extern "C" int tt_splat_tiles(const float* scal, const int* keys,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        TILE_SMEM);
   splat_tile_kernel<<<grid, TILE_THREADS, TILE_SMEM, s>>>(P, info, queue,
-                                                          queue_cap, accum);
+                                                          queue_cap, fix);
   return (int)cudaGetLastError();
 }
 
@@ -635,14 +726,29 @@ extern "C" int tt_splat_strays(const float* scal, const int* keys,
                                const int* p1, const int* vl, const int* p0,
                                const int* rgba, int n, int samples, int h,
                                int w, int hp, int wp, int bits, float pscale,
-                               int* queue, float* accum, void* stream) {
+                               int* queue, long long* fix, void* stream) {
   const long long items = (long long)n * samples;
   if (items > 0) {
     splat_stray_kernel<<<blocks_for(items), THREADS, 0,
                          (cudaStream_t)stream>>>(
         make_params(scal, keys, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
                     bits, pscale),
-        queue + 1, accum);
+        queue + 1, fix);
   }
+  return (int)cudaGetLastError();
+}
+
+// Pass 4, after pass 3 on the same stream: `accum`, f32 [N_CHAN, hp, wp],
+// from the scratch (wp is a multiple of TILE_W, so a plane holds whole
+// groups of 4 texels).
+extern "C" int tt_splat_convert(const float* scal, int n, int samples,
+                                int hp, int wp, const long long* fix,
+                                float* accum, void* stream) {
+  const int plane4 = hp * wp / 4;
+  const long long groups = (long long)N_CHAN * plane4;
+  splat_convert_kernel<<<(int)((groups + CONVERT_THREADS - 1) /
+                               CONVERT_THREADS),
+                         CONVERT_THREADS, 0, (cudaStream_t)stream>>>(
+      scal, n, samples, plane4, fix, accum);
   return (int)cudaGetLastError();
 }

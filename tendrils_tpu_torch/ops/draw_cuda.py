@@ -23,7 +23,8 @@ the sort; 2 the tile alone, the ids a stream of their own:
                                  (in shared memory) the samples that fit
                                  their key tile's region, then per
                                  (segment, sample) the strays (global
-                                 atomics); three launches;
+                                 atomics), in int64 fixed point, then
+                                 the conversion to f32; four launches;
   K3 `resolve` (csrc/resolve.cu) per pixel: order-independent blend of
                                  both grids, fade, the decayed flow `eff`;
                                  or the XLA resolve tail (`_widen_excess`,
@@ -48,8 +49,8 @@ Each kernel's wrapper takes the plain PyTorch version (`pack_plain`,
 tensors lie on the CPU and launches the kernel when they lie on a CUDA
 device. The packed words, the keys and the sorted order are the
 reference's contracts and match it bit for bit; the accumulator is summed
-in f32 (the TPU's matmul operands are bf16) with shared and global float
-atomics, in run-dependent order.
+in int64 fixed point (the TPU's matmul operands are bf16) with shared and
+global integer atomics, so it is the same on every run.
 """
 
 import numpy as np
@@ -330,8 +331,8 @@ def pack_plain(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
 # --- K2 splat ----------------------------------------------------------------
 
 # Launches of one `splat` call, each counted under the variant's name: the
-# plan, the tile pass and the stray pass (`csrc/splat.cu`).
-SPLAT_LAUNCHES = 3
+# plan, the tile pass, the stray pass and the conversion (`csrc/splat.cu`).
+SPLAT_LAUNCHES = 4
 # Words of K2's plan: per output tile (`INFO`) the run starts of its source
 # tiles, its parts and its weighted rows; the queue's head, the counts of
 # queued parts and of strays, before its (tile, part) pairs.
@@ -350,7 +351,9 @@ def splat(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw, pscale,
     hp, wp]`, every texel written by the kernels (`csrc/splat.cu`: the
     plan that finds each output tile's source rows in the sorted keys,
     the tile pass that adds each sample fitting its key tile's region in
-    shared memory, and the stray pass for the rest)."""
+    shared memory, the stray pass for the rest, all in int64 fixed point,
+    and the conversion to f32), the same bits on every call with the same
+    inputs."""
     tensors = [t for t in (scal, keym_s, p1, vl, p0, rgba) if t is not None]
     if cuda_lib.on_cpu(*tensors):
         return splat_plain(scal, p1, vl, samples=samples, grid_hw=grid_hw,
@@ -362,7 +365,7 @@ def splat(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw, pscale,
 
 def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
                   pscale, p0=None, rgba=None):
-    """`splat`'s three launches on CUDA tensors: `(accum, info, queue)`,
+    """`splat`'s four launches on CUDA tensors: `(accum, info, queue)`,
     the accumulator and the plan it ran (per tile `SPLAT_INFO` words: the
     run starts of its source tiles above-left, above, left and its own,
     and the end of its own, at 0-5, its parts at 6, its weighted rows at
@@ -379,17 +382,21 @@ def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
     chunk = split_chunk(n)
     cap = queue_cap(n, chunk)
     dev = p1.device
+    # The fixed-point sums, then their f32 conversion.
+    fix = torch.empty((N_CHAN, hp, wp), dtype=torch.int64, device=dev)
     accum = torch.empty((N_CHAN, hp, wp), dtype=_F32, device=dev)
     info = torch.empty(SPLAT_INFO * tiles_y * tiles_x, dtype=_I32,
                        device=dev)
     queue = torch.empty(SPLAT_QUEUE_HEAD + 2 * cap, dtype=_I32, device=dev)
     name = _variant("splat", p0 is not None, rgba is not None)
     cuda_lib.launch("tt_splat_plan", name, keym_s, n, idx_bits, hp, wp,
-                    chunk, info, queue, cap, accum)
+                    chunk, info, queue, cap, fix)
     args = (scal, keym_s, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
             idx_bits, float(pscale))
-    cuda_lib.launch("tt_splat_tiles", name, *args, info, queue, cap, accum)
-    cuda_lib.launch("tt_splat_strays", name, *args, queue, accum)
+    cuda_lib.launch("tt_splat_tiles", name, *args, info, queue, cap, fix)
+    cuda_lib.launch("tt_splat_strays", name, *args, queue, fix)
+    cuda_lib.launch("tt_splat_convert", name, scal, n, samples, hp, wp, fix,
+                    accum)
     return accum, info, queue
 
 
@@ -478,11 +485,12 @@ def _splat_terms(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
     return gx, gy, groups
 
 
-def _add_boxes(accum, groups, hp, wp):
-    """Add the box footprints of `groups` (`_splat_terms`) into the flat
-    `f32[N_CHAN * hp * wp]` accumulator with one `index_add_` per
-    footprint offset (<= 9 x 9 offsets, both channel groups and all
-    samples at once)."""
+def _box_deposits(groups, hp, wp):
+    """The deposits of the box footprints of `groups` (`_splat_terms`),
+    one footprint offset at a time (<= 9 x 9 offsets, both channel groups
+    and all samples at once): `(index, value)`, flat indices into `[N_CHAN
+    * hp * wp]` and the values `(wr * chan) * wc` (0 where the offset adds
+    nothing)."""
     for oy in range(KSPAN):
         for ox in range(KSPAN):
             index, value = [], []
@@ -500,8 +508,16 @@ def _add_boxes(accum, groups, hp, wp):
                 texel = (torch.clamp(r, 0, hp - 1) * wp
                          + torch.clamp(c, 0, wp - 1)).to(torch.int64)
                 index.append(planes[:, None, None] + texel)
-            accum.index_add_(0, torch.cat([i.reshape(-1) for i in index]),
-                             torch.cat([v.reshape(-1) for v in value]))
+            yield (torch.cat([i.reshape(-1) for i in index]),
+                   torch.cat([v.reshape(-1) for v in value]))
+
+
+def _add_boxes(accum, groups, hp, wp):
+    """Add the box footprints of `groups` (`_splat_terms`) into the flat
+    `f32[N_CHAN * hp * wp]` accumulator with one `index_add_` per
+    footprint offset (`_box_deposits`)."""
+    for index, value in _box_deposits(groups, hp, wp):
+        accum.index_add_(0, index, value)
     return accum
 
 

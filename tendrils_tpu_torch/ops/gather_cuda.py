@@ -32,6 +32,37 @@ from .tile_geom import HALF, PAD_LO_H, PAD_LO_W
 
 _F32 = torch.float32
 _I32 = torch.int32
+# K7 and K8: threads a block (csrc/gather.cu KEYED_THREADS) and the most
+# rows a thread takes.
+KEYED_THREADS = 1024
+KEYED_MAX_ROWS = 8
+# K5's interleaved pair, one per (h, w, device), reused by every call: the
+# kernels run in stream order, so a call's copy is read before the next
+# call's overwrites it.
+_pairs = {}
+
+
+def keyed_layout(n, sms):
+    """`(r, blocks)` of K7 and K8 on `n` sorted rows: `r` rows a thread,
+    min(8, max(1, ceil(n / (sms x KEYED_THREADS)))), so that the rows fill
+    the card's `sms` SMs before a block's span grows; one block a span of
+    KEYED_THREADS x r consecutive rows, at most two waves of two blocks an
+    SM (the blocks stride over the rest)."""
+    r = min(KEYED_MAX_ROWS, max(1, -(-n // (sms * KEYED_THREADS))))
+    return r, max(1, min(-(-n // (KEYED_THREADS * r)), 2 * sms))
+
+
+def _keyed_launch(device, n):
+    return keyed_layout(n, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+
+
+def _pair_scratch(h, w, device):
+    """K5's f32[H, W, 2] scratch for `device`, allocated once."""
+    key = (h, w, device)
+    if key not in _pairs:
+        _pairs[key] = torch.empty((h, w, 2), dtype=_F32, device=device)
+    return _pairs[key]
 
 
 def bilinear_gather(grid, x, y):
@@ -51,8 +82,7 @@ def bilinear_gather(grid, x, y):
         raise ValueError(f"a {h}x{w} plane has 2^31 texels or more; the "
                          "kernels index a plane with 32-bit offsets")
     out = torch.empty((c, m), dtype=_F32, device=grid.device)
-    pair = torch.empty((h, w, 2), dtype=_F32, device=grid.device) \
-        if c > 1 else None
+    pair = _pair_scratch(h, w, grid.device) if c > 1 else None
     cuda_lib.launch("tt_bilinear_gather", "bilinear_gather", grid, c, h, w,
                     x, y, m, pair, out, kernels=c)
     return out
@@ -129,7 +159,8 @@ def bilinear_gather_keyed_p1(grid, p1_packed, *, inv_p):
     cuda_lib.check(p1_packed, "p1_packed", _I32, (m,))
     out = torch.empty((c, m), dtype=_F32, device=grid.device)
     cuda_lib.launch("tt_gather_keyed_p1", "gather_keyed_p1", grid, c, h, w,
-                    p1_packed, m, float(inv_p), out)
+                    p1_packed, m, *_keyed_launch(grid.device, m),
+                    float(inv_p), out)
     return out
 
 
@@ -158,7 +189,8 @@ def bilinear_gather_keyed_q15(grid, p1_packed, inv_sl, *, inv_p):
     cuda_lib.check(p1_packed, "p1_packed", _I32, (m,))
     out = torch.empty(m, dtype=_I32, device=grid.device)
     cuda_lib.launch("tt_gather_keyed_q15", "gather_keyed_q15", grid, h, w,
-                    p1_packed, inv_sl, m, float(inv_p), out)
+                    p1_packed, inv_sl, m, *_keyed_launch(grid.device, m),
+                    float(inv_p), out)
     return out
 
 

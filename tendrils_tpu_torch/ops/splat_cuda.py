@@ -2,8 +2,10 @@
 
 The port of `tendrils_tpu/ops/splat_pallas.py`: `splat_accumulate` adds M
 bilinear points with C payload channels into `(num f32[C, H, W], wsum
-f32[H, W], logt f32[H, W])` (csrc/splat_points.cu, float atomics into an
-unpadded accumulator). `splat_accumulate_plain` is its plain version, the
+f32[H, W], logt f32[H, W])` (csrc/splat_points.cu: int64 fixed-point
+atomics into an unpadded scratch, converted to f32, so every call with the
+same inputs gives the same bits). `splat_accumulate_plain` is its plain
+version, the
 port of `ops/splat.splat_accumulate_xla` with `index_add_`; the wrapper
 takes it for CPU tensors only. The TPU kernel's tile sort, padded margin
 and "moved => alpha 0" rule exist for its region DMAs and compute the same
@@ -15,6 +17,9 @@ import torch
 from . import cuda_lib
 
 _F32 = torch.float32
+# Kernels one `splat_accumulate` call launches with samples (the channel
+# bounds, the fixed-point adds, the conversion); without, the conversion.
+SPLAT_POINTS_LAUNCHES = 3
 
 
 def _bilinear_corners(x, y, h, w):
@@ -52,9 +57,13 @@ def splat_accumulate(grid_hw, x, y, values, alpha):
     cuda_lib.check(y, "y", _F32, (m,))
     cuda_lib.check(values, "values", _F32, (c, m))
     cuda_lib.check(alpha, "alpha", _F32, (m,))
-    accum = torch.zeros((c + 2, h, w), dtype=_F32, device=x.device)
+    dev = x.device
+    bits = torch.empty(c + 2, dtype=torch.int32, device=dev)
+    fix = torch.empty((c + 2, h, w), dtype=torch.int64, device=dev)
+    accum = torch.empty((c + 2, h, w), dtype=_F32, device=dev)
     cuda_lib.launch("tt_splat_points", "splat_points", x, y, values, alpha,
-                    c, m, h, w, accum)
+                    c, m, h, w, bits, fix, accum,
+                    kernels=SPLAT_POINTS_LAUNCHES if m else 1)
     return accum[:c], accum[c], accum[c + 1]
 
 

@@ -3,6 +3,8 @@ mode): K5 `bilinear_gather`, K4 `gather_reconstruct_p1` and K8
 `bilinear_gather_keyed_p1`, including points on and past the last row and
 column, and INERT rows."""
 
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -337,3 +339,36 @@ def test_bilinear_gather_keyed_zero_outside_content():
     ys = torch.tensor([PAD_LO_H + 8.5, PAD_LO_H + 16.0])
     np.testing.assert_allclose(
         tgather.bilinear_gather_keyed(grid, xs, ys).numpy(), [[0.5, 0.5]])
+
+
+# K7's and K8's launch: blocks of KEYED_THREADS threads over consecutive
+# sorted rows, r rows a thread sized from n (H100: 132 SMs).
+@pytest.mark.parametrize("n, sms, want", [
+    (1 << 20, 132, (8, 128)),        # config 2: one block an SM
+    (512 * 512, 132, (2, 128)),      # path B, config 4
+    (1 << 22, 132, (8, 264)),        # config 3: two waves, then a stride
+    (1 << 24, 132, (8, 264)),        # config 5
+    (1000, 132, (1, 1)),
+    (1, 4, (1, 1)),
+])
+def test_keyed_layout_sizes_rows_from_n(n, sms, want):
+    """`keyed_layout`: r = min(8, max(1, ceil(n / (sms x 1024)))), blocks
+    of 1024 x r rows, at most two an SM; together they cover every row
+    (the blocks stride over the spans past the first two waves); the
+    kernel's block size is the wrapper's."""
+    r, blocks = tgather.keyed_layout(n, sms)
+    assert (r, blocks) == want
+    span = tgather.KEYED_THREADS * r
+    assert blocks <= 2 * sms and blocks * span >= min(n, 2 * sms * span)
+    assert -(-n // span) <= blocks or blocks == 2 * sms
+    src = (pathlib.Path(tgather.__file__).resolve().parents[1] / "csrc"
+           / "gather.cu").read_text()
+    assert f"KEYED_THREADS = {tgather.KEYED_THREADS};" in src
+
+
+def test_pair_scratch_is_kept_per_shape():
+    """K5's interleaved pair is allocated once per (h, w, device)."""
+    a = tgather._pair_scratch(6, 10, torch.device("cpu"))
+    assert a.shape == (6, 10, 2) and a.dtype == torch.float32
+    assert tgather._pair_scratch(6, 10, torch.device("cpu")) is a
+    assert tgather._pair_scratch(6, 12, torch.device("cpu")) is not a
