@@ -17,7 +17,9 @@ Phases (each prints a line; any failure exits non-zero before the result):
      included). K1-K5 at the config-2 shapes
      (1,048,576 particles, 1080x1920), K6, K8 and K9 at the config-4
      shapes (262,144 particles, 720x1280; K9 at a pointer frame's samples
-     and at 2 x 262,144);
+     and at 2 x 262,144, then through spread, pointer, empty, off-grid,
+     pointer calls on its kept scratch, each equal to a fresh call, and
+     a pointer call on a second stream, which keeps a scratch of its own);
   4. config 2 through the user's entry points: `models.build("1m-flow")`,
      two facade frames, `run_headless` for 60 steps. Every kernel of the
      path must have launched and no plain version may have run; the state
@@ -83,13 +85,16 @@ gather-mode-2 frame (phase 10), printing the words that differ and its
 device time on each; K12 against `F.grid_sample` in turns; the K1/K2 variants with
 the p0 and rgba8 streams, K12 (with `F.grid_sample` as its library
 yardstick), K10 and K11 on
-the merge inputs recorded from real config-3 and config-2 frames (with
+the merge inputs recorded from real config-3 and config-2 frames, K11
+also on 4M-row synthetic merges at config 3's tiles (churn at n/8, at
+n/8 + 1 with `ok` false, and a tenth of the rows into one tile), with
 the boolean-mask selection as K10's yardstick and the flat `torch.sort`
-printed beside the whole merge) and K1 in gather modes 3 and 2 against
+printed beside the whole merge, and K1 in gather modes 3 and 2 against
 their plain versions. The last three lines are the card, the per-kernel
 JSON and the result JSON.
 """
 
+import collections
 import dataclasses
 import itertools
 import json
@@ -158,7 +163,8 @@ CONFIG4_PATH = ("pack", "splat", "resolve", "bilinear_gather",
 # Launches a frame of each new path (the others: none); K2 launches
 # four kernels a call (the plan, the tile pass, the strays, the
 # conversion), K5 two on the 2-channel flow (the interleaved copy, the
-# gather), K9 three (the channel bounds, the adds, the conversion).
+# gather), K9 three (the channel bounds, the adds and marks, the
+# conversion).
 K2 = 4
 K5 = 2
 K9 = 3
@@ -219,6 +225,11 @@ def time_calls(fn, reps=REPS):
                     + ev.self_device_time_total / 1e3 / reps
         if names:
             return sum(names.values()), call_ms, names
+        kinds = collections.Counter(str(ev.device_type)
+                                    for ev in prof.key_averages())
+        print(f"  (a trace with no device time: events by device "
+              f"{dict(kinds)}; tracing again)")
+        time.sleep(1.0)
     fail(f"torch.profiler recorded no device time in {PROFILE_TRIES} traces")
 
 
@@ -675,10 +686,8 @@ def check_k5_configs():
 
 def check_config4_kernels():
     """K6, K8, K9 at config-4 shapes, and K4 == K8 + K6 bit for bit."""
-    from tendrils_tpu_torch.feeds import pointer_lines, trail_ms
-    from tendrils_tpu_torch.state import default_state
-    from tendrils_tpu_torch.ops import coords, draw_cuda, flow as flow_ops
-    from tendrils_tpu_torch.ops import gather_cuda, splat, splat_cuda
+    from tendrils_tpu_torch.ops import draw_cuda, flow as flow_ops
+    from tendrils_tpu_torch.ops import gather_cuda, splat_cuda
     dev = torch.device("cuda")
     n, (h, w) = 512 * 512, (720, 1280)
     sl, time_ = 0.01, 1000.0
@@ -724,35 +733,18 @@ def check_config4_kernels():
         12 * n + 8 * texels, 20 * n)
     print("  K4 == K8 + K6 bit for bit")
 
-    # K9 at a pointer frame's samples (4 pointers, paths of the default
-    # flowDecay's 200 ms, 5 crest rows, flow_samples 2: the config-4 path)
-    # and at 2 x 262,144 samples spread over the grid and past its edges.
-    # Reads x, y, alpha and 4 payload values (28 B a sample), writes the
-    # 6-plane accumulator once; 12 operations a valid corner.
-    lines = pointer_lines(4, time_, trail_ms(default_state()["flowDecay"]))
-    p0, p1, vel, width = lines.segments(time_, coords.cover_aspect((w, h)),
-                                        (h, w))
-    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    payload = flow_ops.flow_payload(t(vel), time_, sl)
-    x, y, a = splat.segment_samples(t(p0), t(p1), payload[3], 2, 1, width)
-    cases = [("pointer", x, y, torch.repeat_interleave(payload, 2, dim=1),
-              a)]
-    rng = np.random.default_rng(2)
-    m = 2 * n
-    cases.append(("spread", t(rng.uniform(-2, w + 2, m).astype(np.float32)),
-                  t(rng.uniform(-2, h + 2, m).astype(np.float32)),
-                  t(rng.uniform(-0.01, 0.01, (4, m)).astype(np.float32)),
-                  t(rng.uniform(0, 0.9, m).astype(np.float32))))
-    def planes(r):  # (num, wsum, logt) -> f32[C + 2, H, W]
-        return torch.cat([r[0], r[1][None], r[2][None]])
-
+    # K9 at a pointer frame's samples and at 2 x 262,144 spread samples
+    # (`k9_cases`): reads x, y, alpha and 4 payload values (28 B a sample),
+    # writes the 6-plane accumulator once; 12 operations a valid corner.
+    cases = k9_cases()
     for label, x, y, vals, alpha in reversed(cases):
         sargs = ((h, w), x, y, vals, alpha)
-        got = planes(splat_cuda.splat_accumulate(*sargs))
+        got = k9_planes(splat_cuda.splat_accumulate(*sargs))
         err = within_channel_max(
             f"splat_points ({label})", got,
-            planes(splat_cuda.splat_accumulate_plain(*sargs)))
-        if not torch.equal(got, planes(splat_cuda.splat_accumulate(*sargs))):
+            k9_planes(splat_cuda.splat_accumulate_plain(*sargs)))
+        if not torch.equal(got,
+                           k9_planes(splat_cuda.splat_accumulate(*sargs))):
             fail(f"splat_points ({label}): two calls on one input differ")
         print(f"  splat_points ({label}): the same bits on two calls")
         del got
@@ -766,7 +758,84 @@ def check_config4_kernels():
             lambda: splat_cuda.splat_accumulate_plain(*sargs),
             x.numel() * 28 + 6 * h * w * 4, 12 * corners,
             label=f" ({label}, M = {x.numel()})")
+    check_k9_sequence((h, w), cases)
     return out
+
+
+def k9_cases():
+    """K9's inputs at config 4, `[(label, x, y, values, alpha)]`: a
+    pointer frame's samples (4 pointers, paths of the default flowDecay's
+    200 ms, 5 crest rows, flow_samples 2: the config-4 path) and 2 x
+    262,144 samples spread over the 720x1280 grid and past its edges."""
+    from tendrils_tpu_torch.feeds import pointer_lines, trail_ms
+    from tendrils_tpu_torch.state import default_state
+    from tendrils_tpu_torch.ops import coords, flow as flow_ops, splat
+    dev = torch.device("cuda")
+    h, w = 720, 1280
+    sl, time_ = 0.01, 1000.0
+    lines = pointer_lines(4, time_, trail_ms(default_state()["flowDecay"]))
+    p0, p1, vel, width = lines.segments(time_, coords.cover_aspect((w, h)),
+                                        (h, w))
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    payload = flow_ops.flow_payload(t(vel), time_, sl)
+    x, y, a = splat.segment_samples(t(p0), t(p1), payload[3], 2, 1, width)
+    cases = [("pointer", x, y, torch.repeat_interleave(payload, 2, dim=1),
+              a)]
+    rng = np.random.default_rng(2)
+    m = 2 * 512 * 512
+    cases.append(("spread", t(rng.uniform(-2, w + 2, m).astype(np.float32)),
+                  t(rng.uniform(-2, h + 2, m).astype(np.float32)),
+                  t(rng.uniform(-0.01, 0.01, (4, m)).astype(np.float32)),
+                  t(rng.uniform(0, 0.9, m).astype(np.float32))))
+    return cases
+
+
+def k9_planes(r):
+    """K9's `(num, wsum, logt)` -> its f32[C + 2, H, W] accumulator."""
+    return torch.cat([r[0], r[1][None], r[2][None]])
+
+
+def check_k9_sequence(grid_hw, cases):
+    """K9's kept scratch comes back clean: the calls spread, pointer,
+    empty (M = 0), all off the grid, pointer, one after another on the
+    kept scratch, each bit-equal to a fresh call on the same input (its
+    scratch dropped first); the empty and off-grid calls all zeros; a
+    pointer call on a second stream, on a scratch of its own, the same."""
+    from tendrils_tpu_torch.ops import splat_cuda
+    h, w = grid_hw
+    (_, *pointer), (_, *spread) = cases
+    dev = pointer[0].device
+    empty = [torch.zeros(0, device=dev)] * 2 + [
+        torch.zeros((4, 0), device=dev), torch.zeros(0, device=dev)]
+    off = [pointer[0] + 2 * w, pointer[1] - 2 * h, *pointer[2:]]
+    seq = [("spread", spread), ("pointer", pointer), ("empty", empty),
+           ("off the grid", off), ("pointer again", pointer)]
+    kept = [k9_planes(splat_cuda.splat_accumulate(grid_hw, *c))
+            for _, c in seq]
+    for (label, c), got in zip(seq, kept):
+        splat_cuda._kept.clear()
+        fresh = k9_planes(splat_cuda.splat_accumulate(grid_hw, *c))
+        if not torch.equal(got, fresh):
+            fail(f"splat_points: the {label} call on the kept scratch "
+                 "differs from a fresh call")
+    for label, got in zip(("empty", "off the grid"), kept[2:4]):
+        if got.any():
+            fail(f"splat_points: the {label} call is not all zeros")
+    if not torch.equal(kept[1], kept[4]):
+        fail("splat_points: the pointer call differs after the sequence")
+    before = len(splat_cuda._kept)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = k9_planes(splat_cuda.splat_accumulate(grid_hw, *pointer))
+    torch.cuda.synchronize()
+    if len(splat_cuda._kept) != before + 1 or not torch.equal(other,
+                                                              kept[1]):
+        fail("splat_points: a call on a second stream did not take a "
+             "scratch of its own or differs")
+    print("  splat_points: spread, pointer, empty, off-grid, pointer on the "
+          "kept scratch each equal a fresh call; empty and off-grid all "
+          "zeros; a second stream's call on its own scratch the same")
 
 
 def classic_streams(n, grid_hw, sl, seed, exact_p0=True, jump=0.0,
@@ -1498,6 +1567,74 @@ def check_reorder_at(label, inp, out=None):
     return k / n
 
 
+def synthetic_merge(n, n_tiles, idx_bits, churn, seed, heavy=None):
+    """A merge's inputs `(key, prev_key, prev_hist)`: a tile-sorted previous
+    key stream of `n` rows over `n_tiles` tiles (row r's id bits r mod
+    2^idx_bits) and a frame in which `churn` rows, drawn at random, moved
+    to another tile (with `heavy`, all to tile `heavy`)."""
+    from tendrils_tpu_torch.ops import reorder_cuda as ro
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    tiles = torch.sort(draw(0, n_tiles))[0]
+    low = torch.arange(n, dtype=torch.int32, device=dev) \
+        & ((1 << idx_bits) - 1)
+    prev = (tiles << idx_bits) | low
+    if heavy is None:
+        cand = torch.arange(n, device=dev)
+        new = (tiles + draw(1, n_tiles)) % n_tiles
+    else:
+        cand = (tiles != heavy).nonzero()[:, 0]
+        new = torch.full_like(tiles, heavy)
+    rows = cand[torch.randperm(cand.numel(), generator=g,
+                               device=dev)[:churn]]
+    key = prev.clone()
+    key[rows] = (new[rows] << idx_bits) | low[rows]
+    return key, prev, ro.tile_hist(tiles, n_tiles)
+
+
+def check_reorder_synthetic(n, n_tiles, idx_bits):
+    """K11 on synthetic n-row merges at config 3's tiles: churn at exactly
+    the n/8 capacity (`ok`), one row past it (`ok` false), and a tenth of
+    the rows moved into one tile (`ok`; the source blocks around that
+    tile spread over several destination blocks). Outputs and counts bit
+    for bit against the plain version; past the capacity, the slots no
+    row reached (n - the counts' sum) are the only ones that may differ,
+    as both leave them unwritten."""
+    from tendrils_tpu_torch.ops import reorder_cuda as ro
+    kw = dict(n_tiles=n_tiles, idx_bits=idx_bits)
+    cap = ro.capacity(n)
+    cases = (("churn n/8", cap, None, True),
+             ("churn n/8 + 1", cap + 1, None, False),
+             ("a tenth into one tile", n // 10, n_tiles // 2, True))
+    for seed, (label, churn, heavy, want_ok) in enumerate(cases):
+        key, prev, hist = synthetic_merge(n, n_tiles, idx_bits, churn,
+                                          seed, heavy)
+        args, _ = ro.merge_plan(key, prev, hist, **kw)
+        got = ro.merge_apply(*args, idx_bits=idx_bits)
+        want = ro.merge_apply_plain(*args, idx_bits=idx_bits)
+        if not torch.equal(got[2], want[2]):
+            fail(f"reorder_apply ({label}): counts differ")
+        unreached = n - int(want[2].sum())
+        differ = int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+        if differ > unreached:
+            fail(f"reorder_apply ({label}): {differ} slots differ, "
+                 f"{unreached} unreached")
+        ok = bool(ro.merge_reorder(key, prev, hist, **kw)[0])
+        if ok != want_ok:
+            fail(f"merge_reorder ({label}): ok {ok}, want {want_ok}")
+        if ok and not torch.equal(got[0] >> idx_bits,
+                                  torch.sort(key)[0] >> idx_bits):
+            fail(f"merge_reorder ({label}): not sorted by tile")
+        print(f"  reorder_apply on {n} synthetic rows, {label} ({churn} "
+              f"churned): bit-exact, counts included ({unreached} slots "
+              f"unreached), ok {ok}")
+
+
 def check_gather_mode_packs(out):
     """K1 in gather mode 3 (the resident stream beyond 2^20 rows: key_recon,
     `tile << 19 | id_lo`) and mode 2 (the non-resident draw: exact p0 and
@@ -1536,6 +1673,9 @@ def check_merge_kernels():
                          "mode 1")):
         inp, (args, kw) = capture_merge_inputs(models.build(name))
         check_reorder_at(label, inp, out if name.startswith("4m") else None)
+        if name.startswith("4m"):
+            check_reorder_synthetic(inp["key"].numel(), inp["n_tiles"],
+                                    inp["idx_bits"])
         del inp
         if name.startswith("4m"):
             merged = not torch.equal(args[1], torch.sort(args[1])[0])

@@ -3,6 +3,7 @@
     python3 frame_profile.py [--model M] [--frames 20] [--classic]
                              [--color-maps] [--paused] [--merge]
     python3 frame_profile.py --gathers
+    python3 frame_profile.py --k9-k11
 
 Drives `models.build(M)`: "optical-flow-driven" (config 4, the default)
 through `step_draw_io` with the feed of `chip_smoke.py` (`feeds.IoFeed`:
@@ -45,12 +46,18 @@ seeded sorted stream. It needs only what the package has had since the
 gathers were first ported, so it also times an older tree's kernels (copy
 this script and `chip_smoke.py` into that tree).
 
+`--k9-k11` times K9 (config 4's pointer frame and 2 x 262,144 spread
+samples) and K11 (a real config-3 frame's merge inputs, beside the whole
+merge and the flat `torch.sort`) alone, each checked against its plain
+version first; see `profile_k9_k11`.
+
 It imports nothing of JAX; it needs a CUDA device.
 """
 
 import argparse
 import collections
 import dataclasses
+import re
 import statistics
 import time
 
@@ -194,6 +201,76 @@ def profile_gathers():
           f"{', '.join(f'{t:.4f}' for t in ms)})")
 
 
+def _turns(label, fns, turns=3):
+    """Each of `fns` timed (`chip_smoke.time_calls`) in `turns` alternating
+    turns; prints device ms and call ms, median and range."""
+    import chip_smoke as cs
+    dev = {k: [] for k in fns}
+    call = {k: [] for k in fns}
+    names = {}
+    for _ in range(turns):
+        for k, fn in fns.items():
+            ms, call_ms, names[k] = cs.time_calls(fn)
+            dev[k].append(ms)
+            call[k].append(call_ms)
+    for k in fns:
+        parts = "; ".join(f"{n.split('(')[0][-40:]} {t:.4f}"
+                          for n, t in names[k].items())
+        print(f"  {label} {k}: device {statistics.median(dev[k]):.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in dev[k])}); call "
+              f"{statistics.median(call[k]):.4f} ms "
+              f"({', '.join(f'{t:.4f}' for t in call[k])}); last turn "
+              f"by kernel: {parts}")
+
+
+def profile_k9_k11():
+    """`--k9-k11`: K9 at config 4's pointer and spread samples and K11 on a
+    real config-3 frame's merge inputs, each checked against its plain
+    version and timed in 3 turns (device ms by kernel); K9 also after a
+    128 MB write, as in a frame."""
+    import chip_smoke as cs
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import reorder_cuda as ro, splat_cuda
+    print(f"K9 and K11 alone on {torch.cuda.get_device_name(0)}")
+    grid_hw = (720, 1280)
+    flush = torch.empty(32 * 2 ** 20, device="cuda")
+    for label, *inp in cs.k9_cases():
+        want = cs.k9_planes(splat_cuda.splat_accumulate_plain(grid_hw, *inp))
+        got = cs.k9_planes(splat_cuda.splat_accumulate(grid_hw, *inp))
+        cs.within_channel_max(f"K9 ({label})", got, want)
+        if not torch.equal(got, cs.k9_planes(splat_cuda.splat_accumulate(
+                grid_hw, *inp))):
+            raise SystemExit(f"K9 ({label}): two calls differ")
+        print(f"  K9 ({label}, M = {inp[0].numel()}): within 1e-5 of each "
+              "channel's max of the plain version, the same bits on two "
+              "calls")
+        _turns(f"K9 ({label})", {"splat_accumulate": lambda: (
+            splat_cuda.splat_accumulate(grid_hw, *inp))})
+        # As in a frame, where the kernels before it leave the 50 MB L2
+        # full of their own written lines: a 128 MB write before each call.
+        _turns(f"K9 ({label}) after a 128 MB write", {
+            "splat_accumulate": lambda: (flush.fill_(1.0),
+                                         splat_cuda.splat_accumulate(
+                                             grid_hw, *inp))})
+        del want, got
+    inp, _ = cs.capture_merge_inputs(models.build("4m-respawn-stress"))
+    kw = dict(n_tiles=inp["n_tiles"], idx_bits=inp["idx_bits"])
+    key, prev, hist = inp["key"], inp["prev_key"], inp["prev_hist"]
+    args, _ = ro.merge_plan(key, prev, hist, **kw)
+    want = ro.merge_apply_plain(*args, idx_bits=kw["idx_bits"])
+    got = ro.merge_apply(*args, idx_bits=kw["idx_bits"])
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise SystemExit("K11 differs from the plain version")
+    churn = int((key != prev).sum())
+    print(f"  K11 on a config-3 frame's merge inputs ({key.numel()} rows, "
+          f"{churn} churned): bit-exact, counts included")
+    _turns("K11 (config 3)", {"merge_apply": lambda: ro.merge_apply(
+        *args, idx_bits=kw["idx_bits"])})
+    _turns("config 3", {
+        "merge_reorder": lambda: ro.merge_reorder(key, prev, hist, **kw),
+        "torch.sort": lambda: torch.sort(key)})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="optical-flow-driven",
@@ -205,11 +282,14 @@ def main():
     ap.add_argument("--paused", action="store_true")
     ap.add_argument("--merge", action="store_true")
     ap.add_argument("--gathers", action="store_true")
+    ap.add_argument("--k9-k11", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device")
     if args.gathers:
         return profile_gathers()
+    if args.k9_k11:
+        return profile_k9_k11()
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.feeds import IoFeed
     from tendrils_tpu_torch.ops import cuda_lib, spawn
@@ -280,6 +360,12 @@ def main():
           f"  K2 splat in all (plan {k2['plan'] / n:.4f}, tile pass "
           f"{k2['tile'] / n:.4f}, stray pass {k2['stray'] / n:.4f}, "
           f"conversion {k2['convert'] / n:.4f})")
+    k9 = {key: ms for key, ms in dev.items() if "splat_points" in key}
+    if k9:
+        print(f"    {sum(k9.values()) / n:8.4f} ms/frame  "
+              f"{sum(calls[k] for k in k9) / n:6.1f}/frame  K9 in all ("
+              + ", ".join(f"{re.search(r'splat_points_[a-z_]*', k)[0]} "
+                          f"{ms / n:.4f}" for k, ms in k9.items()) + ")")
 
     acc = collections.Counter()
     patched = _stage_timers(acc)

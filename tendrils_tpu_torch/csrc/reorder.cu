@@ -25,17 +25,25 @@
 // source row instead of the payloads lets the caller gather every stream by
 // one permutation, as the flat sort does.
 //
-// K11, one thread per row in two roles:
-//   U blocks (one per 4096-row source block): the U row at row r goes to
+// K11, one block of 1024 threads per 4096 rows, in two roles:
+//   U blocks (one per 4096-row source block): pass j = 0..3 of thread t
+//     takes row b x 4096 + j x 1024 + t, so a warp's loads of key and prev
+//     are one 128-byte line each. The U row at row r goes to
 //     (#U before r) + (#C in tiles before its tile), csum_c_excl[tile];
 //     "#U before r" is the block's U base (its first row minus the C rows
-//     of earlier blocks, base_b) plus a block-wide exclusive scan;
+//     of earlier blocks, base_b), the U rows of the block's earlier passes,
+//     and a block-wide exclusive scan over the pass's 1024 rows. A warp's U
+//     rows of one tile then land on consecutive ranks;
 //   C blocks (after them): the j-th sorted C row goes to
-//     (#U in tiles up to its tile), csum_u_incl[tile], + j.
+//     (#U in tiles up to its tile), csum_u_incl[tile], + j, j strided by
+//     1024 across the block's threads.
 // Each placement writes key_sorted[rank] and perm[rank] = source row and
-// counts itself in its 4096-element destination block (warp-aggregated
-// atomics on i32[n / 4096]); `ok` = the capacity guard and every count ==
-// 4096 (the JAX's `counts == DB`). A rank outside [0, n) or a tile outside
+// counts itself in its 4096-element destination block (i32[n / 4096]): a
+// warp whose placements all fall in one block (found with redux.sync
+// min/max) adds them with one atomic; a warp that straddles blocks groups
+// its lanes by block first. `ok` = the capacity guard and every count ==
+// 4096 (the JAX's `counts == DB`), so the counts must be exact for any
+// ranks, colliding ones included. A rank outside [0, n) or a tile outside
 // the histogram is not placed, so it shows as a count mismatch. The TPU's
 // window guards (WIN, CWIN, TBLW misses) have no counterpart in a scatter:
 // this `ok` may hold on a frame where the JAX's does not.
@@ -47,11 +55,9 @@
 // in-VMEM log-shift networks and windowed DMAs because Mosaic has no
 // scatter; a direct scatter to the exact merge rank computes the same
 // permutation.
-#include <cooperative_groups.h>
+#include <climits>
 
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -59,31 +65,48 @@ using namespace tt;
 
 constexpr int SB = 4096;        // rows of a source block and of a dest block
 constexpr int RT = 1024;        // threads of a block
-constexpr int PER = SB / RT;    // consecutive rows per thread
+constexpr int PER = SB / RT;    // rows per thread
+constexpr unsigned FULL = 0xffffffffu;
 
-// Exclusive prefix sum of `v` over the block's RT threads, in thread order.
-// Called once per block (its shared array is not reused).
-__device__ __forceinline__ int block_excl_scan(int v) {
-  __shared__ int warp_sums[RT / 32];
+// P exclusive prefix sums at once, each of one value a thread over the
+// block's RT threads in thread order: excl[j] gets the sum of v[j] over
+// the threads before this one, total[j] the sum over the block. `sums`:
+// P x RT / 32 ints of shared memory, written here (a second call in the
+// same block needs arrays of its own). Two barriers for all P scans: the
+// warps' sums of scan j are scanned by warp j.
+template <int P>
+__device__ __forceinline__ void block_excl_scans(const int (&v)[P],
+                                                 int (&excl)[P],
+                                                 int (&total)[P],
+                                                 int (*sums)[RT / 32]) {
+  static_assert(P <= RT / 32, "one warp a scan");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int s = warp_sums[lane];  // RT / 32 == 32 warps: one lane each
+  int x[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    x[j] = v[j];
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      const int y = __shfl_up_sync(FULL, x[j], o);
+      if (lane >= o) x[j] += y;
+    }
+    if (lane == 31) sums[j][warp] = x[j];
+  }
+  __syncthreads();
+  if (warp < P) {
+    int s = sums[warp][lane];  // RT / 32 == 32 warps: one lane each
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, s, o);
       if (lane >= o) s += y;
     }
-    warp_sums[lane] = s;
+    sums[warp][lane] = s;
   }
   __syncthreads();
-  return x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    total[j] = sums[j][RT / 32 - 1];
+    excl[j] = x[j] - v[j] + (warp > 0 ? sums[j][warp - 1] : 0);
+  }
 }
 
 __global__ void __launch_bounds__(RT)
@@ -91,16 +114,19 @@ __global__ void __launch_bounds__(RT)
                    const int* __restrict__ base_b, int cap,
                    int* __restrict__ ck, int* __restrict__ cprev,
                    int* __restrict__ csrc) {
+  __shared__ int sums[1][RT / 32];
   const int r0 = blockIdx.x * SB + threadIdx.x * PER;
   int k[PER], p[PER];
-  int c = 0;
+  int c[1] = {0};
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     k[j] = key[r0 + j];
     p[j] = prev[r0 + j];
-    c += k[j] != p[j];
+    c[0] += k[j] != p[j];
   }
-  int pos = base_b[blockIdx.x] + block_excl_scan(c);
+  int excl[1], total[1];
+  block_excl_scans(c, excl, total, sums);
+  int pos = base_b[blockIdx.x] + excl[0];
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     if (k[j] != p[j]) {
@@ -114,18 +140,34 @@ __global__ void __launch_bounds__(RT)
   }
 }
 
-// Write one row at its merge rank and count it in its destination block.
-__device__ __forceinline__ void place(int rank, int n, int k, int src,
-                                      int* __restrict__ key_out,
+// Write each lane's row (`p`: it has one) at its merge rank and count the
+// warp's placements in their destination blocks. Called by all 32 lanes.
+// When every placing lane's rank lies in one block (the rule: a warp's
+// ranks are near-consecutive), one lane adds them all; otherwise the lanes
+// are grouped by block (`__match_any_sync`) and each group adds its size.
+__device__ __forceinline__ void place(bool p, int rank, int n, int k,
+                                      int src, int* __restrict__ key_out,
                                       int* __restrict__ perm_out,
                                       int* __restrict__ counts) {
-  if (rank < 0 || rank >= n) return;
-  key_out[rank] = k;
-  perm_out[rank] = src;
-  const int blk = rank / SB;
-  cg::coalesced_group active = cg::coalesced_threads();
-  cg::coalesced_group peers = cg::labeled_partition(active, blk);
-  if (peers.thread_rank() == 0) atomicAdd(&counts[blk], (int)peers.size());
+  p = p && rank >= 0 && rank < n;
+  const int blk = p ? rank / SB : 0;
+  if (p) {
+    key_out[rank] = k;
+    perm_out[rank] = src;
+  }
+  const unsigned placed = __ballot_sync(FULL, p);
+  if (placed == 0) return;
+  const int lo = __reduce_min_sync(FULL, p ? blk : INT_MAX);
+  const int hi = __reduce_max_sync(FULL, p ? blk : -1);
+  const int lane = threadIdx.x & 31;
+  if (lo == hi) {
+    if (lane == __ffs(placed) - 1) atomicAdd(&counts[lo], __popc(placed));
+    return;
+  }
+  if (p) {
+    const unsigned peers = __match_any_sync(placed, blk);
+    if (lane == __ffs(peers) - 1) atomicAdd(&counts[blk], __popc(peers));
+  }
 }
 
 __global__ void __launch_bounds__(RT)
@@ -138,46 +180,55 @@ __global__ void __launch_bounds__(RT)
                  int idx_bits, int* __restrict__ key_out,
                  int* __restrict__ perm_out, int* __restrict__ counts) {
   if ((int)blockIdx.x < nb) {
-    // U role: source block blockIdx.x.
+    // U role: source block b; pass j covers its rows j x RT + thread.
+    __shared__ int sums[PER][RT / 32];
     const int b = blockIdx.x;
-    const int r0 = b * SB + threadIdx.x * PER;
-    int k[PER];
-    bool is_u[PER];
-    int u = 0;
+    const int r0 = b * SB + threadIdx.x;
+    int k[PER], is_u[PER], c_before[PER];
+    bool in[PER];
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      k[j] = key[r0 + j];
-      is_u[j] = k[j] == prev[r0 + j];
-      u += is_u[j];
+      k[j] = key[r0 + j * RT];
+      is_u[j] = k[j] == prev[r0 + j * RT];
     }
-    int u_before = b * SB - base_b[b] + block_excl_scan(u);
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
-      if (is_u[j]) {
-        const unsigned t = (unsigned)k[j] >> idx_bits;
-        if (t < (unsigned)n_tiles) {
-          place(u_before + csum_c_excl[t], n, k[j], r0 + j, key_out,
-                perm_out, counts);
-        }
-        ++u_before;
-      }
+      const unsigned t = (unsigned)k[j] >> idx_bits;
+      in[j] = is_u[j] && t < (unsigned)n_tiles;
+      c_before[j] = in[j] ? csum_c_excl[t] : 0;
+    }
+    int excl[PER], total[PER];
+    block_excl_scans(is_u, excl, total, sums);
+    int u_before = b * SB - base_b[b];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      place(in[j], u_before + excl[j] + c_before[j], n, k[j], r0 + j * RT,
+            key_out, perm_out, counts);
+      u_before += total[j];
     }
     return;
   }
   // C role: sorted C rows (blockIdx.x - nb) * SB ..., strided by RT.
   const int kt = min(*k_total, cap);
   const int j0 = (blockIdx.x - nb) * SB + threadIdx.x;
+  int kc[PER], rank[PER], src[PER];
+  bool in[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int j = j0 + i * RT;
-    if (j < kt) {
-      const int kc = ck_s[j];
-      const unsigned t = (unsigned)kc >> idx_bits;
-      if (t < (unsigned)n_tiles) {
-        place(csum_u_incl[t] + j, n, kc, src_s[j], key_out, perm_out,
-              counts);
-      }
-    }
+    kc[i] = j < kt ? ck_s[j] : 0;
+    src[i] = j < kt ? src_s[j] : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = j0 + i * RT;
+    const unsigned t = (unsigned)kc[i] >> idx_bits;
+    in[i] = j < kt && t < (unsigned)n_tiles;
+    rank[i] = in[i] ? csum_u_incl[t] + j : 0;
+  }
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    place(in[i], rank[i], n, kc[i], src[i], key_out, perm_out, counts);
   }
 }
 

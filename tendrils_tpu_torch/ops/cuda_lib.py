@@ -54,7 +54,8 @@ _SIGNATURES = {
     "tt_bilinear_gather": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
     "tt_reconstruct": [_P, _P, _P, _P, _I, _P, _P, _P],
     "tt_gather_keyed_p1": [_P, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P],
-    "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                        _P, _P],
     "tt_gather_keyed_q15": [_P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _P],
     "tt_gather_keyed": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
     "tt_reorder_compact": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
