@@ -12,9 +12,13 @@ Phases (each prints a line; any failure exits non-zero before the result):
      larger) and, where one PyTorch call computes the same function, that
      call's time. A time is the device time (`torch.profiler`, the
      kernels' own CUDA time summed over 20 back-to-back calls, over 20;
-     3 calls for a plain version); beside a kernel's, its call time (CUDA
-     events around 20 back-to-back calls, over 20: the host's enqueue
-     included). K1-K5 at the config-2 shapes
+     3 calls for a plain version; a trace that lost a device event is
+     taken again); beside a kernel's, its cold device times (the same,
+     with a buffer of twice the card's L2 written, or read, before each
+     call so that no input is left in L2; the flush's kernels are left
+     out by name, and each flush's time alone is printed first) and its
+     call time (CUDA events around 20 back-to-back calls, over 20: the
+     host's enqueue included). K1-K5 at the config-2 shapes
      (1,048,576 particles, 1080x1920), K6, K8 and K9 at the config-4
      shapes (262,144 particles, 720x1280; K9 at a pointer frame's samples
      and at 2 x 262,144, then through spread, pointer, empty, off-grid,
@@ -96,6 +100,7 @@ JSON and the result JSON.
 
 import collections
 import dataclasses
+import functools
 import itertools
 import json
 import statistics
@@ -115,6 +120,12 @@ REPS = 20  # back-to-back calls a kernel or a library call is timed over
 PLAIN_REPS = 3  # the same for a plain version (up to ~0.4 s a call)
 LIB_ROUNDS = 7  # alternating turns of a kernel against its library call
 PROFILE_TRIES = 3  # traces a timing takes before it gives up
+PAD_LAUNCHES = 64  # spin kernels that open a trace (`time_calls`)
+# The host's CUDA runtime calls that ask for a device event (a kernel, a
+# copy, a fill), by the names `torch.profiler` records them under.
+RUNTIME_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                 "cuMemcpy", "cuMemset")
+TRACES = collections.Counter()  # traces `time_calls` took, and retook
 # Kernel -> (source, the TPU kernel it replaces).
 KERNELS = {
     "pack": ("tendrils_tpu_torch/csrc/pack.cu",
@@ -192,60 +203,113 @@ def fail(msg):
     sys.exit(1)
 
 
-def time_calls(fn, reps=REPS):
+@functools.cache
+def l2_flush(kind):
+    """What a cold timing runs before each call so that the call finds
+    none of its inputs in L2, on an int16 buffer of twice the card's L2
+    (`L2_cache_size`; no kernel's wrapper runs an int16 fill or max):
+    "write" fills it, which leaves every line of L2 dirty, so that the
+    timed call also pays to write them back as it reads; "read" takes the
+    max of each 1,024-element row, which leaves L2 clean (its 100 KB of
+    results aside). `(flush, ms, names)`: the function, its device ms
+    alone, and its kernels' names, which a cold timing leaves out."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    buf = torch.ones((l2 // 1024, 1024), dtype=torch.int16, device="cuda")
+    flush = {"write": lambda: buf.fill_(1),
+             "read": lambda: buf.amax(1)}[kind]
+    ms, _, kernels = time_calls(flush)
+    return flush, ms, set(kernels)
+
+
+def time_calls(fn, reps=REPS, cold=None):
     """`(device ms, call ms, {kernel: device ms})` of one call of `fn`, each
     over `reps` back-to-back calls after a warm one: the device time of
     the kernels, copies and fills they ran, by `torch.profiler`, summed
     and divided by `reps`; and the time between CUDA events around them,
-    divided by `reps`: what a caller pays, the host's enqueue included."""
+    divided by `reps`: what a caller pays, the host's enqueue included.
+    With `cold` ("write" or "read"), `l2_flush(cold)` runs before each
+    traced call and its kernels are left out by name (none may run more
+    than once a call, so `fn` shares none of them); the call ms is None.
+
+    A trace counts only if it holds a device event for each launch, copy
+    and fill that the host's CUDA runtime calls in it asked for. After a
+    trace of many launches (a plain splat's), the profiler loses the
+    first device events of later traces, and now and then it hands back a
+    trace with none, so each trace opens with PAD_LAUNCHES spin kernels,
+    left out by name, twice as many at each try; a trace that still
+    misses an event is traced again, and after PROFILE_TRIES the run
+    fails."""
     from torch.profiler import ProfilerActivity, profile
+    flush, _, flush_names = l2_flush(cold) if cold else (None, 0.0, ())
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    call_ms = start.elapsed_time(end) / reps
-    # The profiler now and then hands back a trace with no device events
-    # (seen once on an H100 in several hundred traces): trace again.
-    for _ in range(PROFILE_TRIES):
+    call_ms = None
+    if not cold:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        call_ms = start.elapsed_time(end) / reps
+    for attempt in range(PROFILE_TRIES):
+        pads = PAD_LAUNCHES << attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(pads):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             for _ in range(reps):
+                if flush is not None:
+                    flush()
                 fn()
             torch.cuda.synchronize()
+        asked = recorded = 0
         names = {}
         for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA \
-                    and ev.self_device_time_total > 0:
-                names[ev.key] = names.get(ev.key, 0.0) \
-                    + ev.self_device_time_total / 1e3 / reps
-        if names:
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                if ev.key.startswith(RUNTIME_CALLS):
+                    asked += ev.count
+                continue
+            if "spin_kernel" in ev.key:
+                continue
+            recorded += ev.count
+            if ev.key in flush_names:
+                if ev.count > reps:
+                    fail(f"cold timing: {ev.key} ran {ev.count} times in "
+                         f"{reps} calls, the L2 flush runs it once a call")
+            elif ev.self_device_time_total > 0:
+                names[ev.key] = ev.self_device_time_total / 1e3 / reps
+        TRACES["traces"] += 1
+        if names and recorded == asked - pads:
             return sum(names.values()), call_ms, names
-        kinds = collections.Counter(str(ev.device_type)
-                                    for ev in prof.key_averages())
-        print(f"  (a trace with no device time: events by device "
-              f"{dict(kinds)}; tracing again)")
+        TRACES["traced again"] += 1
+        print(f"  (a trace after {pads} spin kernels holds {recorded} of "
+              f"the {asked - pads} device events its calls asked for; "
+              f"tracing again)")
         time.sleep(1.0)
-    fail(f"torch.profiler recorded no device time in {PROFILE_TRIES} traces")
+    fail(f"torch.profiler lost device events in each of {PROFILE_TRIES} "
+         f"traces")
 
 
 def timed_row(out, name, err, fn, plain_fn, nbytes, ops, library_fn=None,
            plain_reps=PLAIN_REPS, label=""):
-    """Time a kernel's wrapper (`fn`), its plain version and, where one
-    PyTorch call computes the same function, that call; store the row
-    `out[name]` with the bound and print it."""
+    """Time a kernel's wrapper (`fn`), warm and cold after each flush, its
+    plain version and, where one PyTorch call computes the same function,
+    that call; store the row `out[name]` with the bound and print it."""
     ms, call_ms, _ = time_calls(fn)
+    cold_ms = time_calls(fn, cold="write")[0]
+    cold_clean_ms = time_calls(fn, cold="read")[0]
     plain_ms = time_calls(plain_fn, plain_reps)[0]
     library_ms = None if library_fn is None else time_calls(library_fn)[0]
     b, by = bound(nbytes, ops)
-    out[name] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+    out[name] = dict(max_abs_err=err, ms=ms, cold_ms=cold_ms,
+                     cold_clean_ms=cold_clean_ms, call_ms=call_ms,
                      plain_ms=plain_ms, bound_ms=b, bound_by=by,
                      library_ms=library_ms)
-    print(f"  {name}{label}: max |d| {err:.3e}; device {ms:.4f} ms, call "
+    print(f"  {name}{label}: max |d| {err:.3e}; device {ms:.4f} ms, cold "
+          f"{cold_ms:.4f} ms (clean L2 {cold_clean_ms:.4f} ms), call "
           f"{call_ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b:.4f} ms by "
           f"{by}" + ("" if library_ms is None
                      else f", library {library_ms:.4f} ms") + ")")
@@ -916,13 +980,32 @@ def check_variant_pack_splat(name, n, grid_hw, s, in_bytes, out):
               *splat_work(keym_s, vl_s, hp, wp, words))
 
 
+def k12_points(p1_s, inv_p, h, w):
+    """K12's points: the padded coords of sorted p1 words, clamped as the
+    draw's aux contract has them."""
+    from tendrils_tpu_torch.ops.tile_geom import PAD_LO_H, PAD_LO_W
+    x, y = p1_coords(p1_s, inv_p, h, w)
+    return x + PAD_LO_W, y + PAD_LO_H
+
+
+def k12_library(eff, xs, ys):
+    """K12's library call: `grid_sample` (bilinear, zero padding,
+    unaligned corners) at the content coords, normalised first."""
+    from tendrils_tpu_torch.ops.tile_geom import PAD_LO_H, PAD_LO_W
+    _, h, w = eff.shape
+    norm = torch.stack([(xs - PAD_LO_W) / w * 2.0 - 1.0,
+                        (ys - PAD_LO_H) / h * 2.0 - 1.0], dim=-1)[None, None]
+    return lambda: torch.nn.functional.grid_sample(
+        eff[None], norm, mode="bilinear", padding_mode="zeros",
+        align_corners=False)
+
+
 def check_slice3_kernels():
     """At config-2 shapes (1,048,576 rows, 1080x1920): K1/K2 with the
     exact p0 and rgba8 streams, K7 and K12 against their plain versions;
     at config-4 shapes (262,144 rows, 720x1280): K1/K2 with key_recon and
     rgba8 (the textured resident frame)."""
     from tendrils_tpu_torch.ops import flow as flow_ops, gather_cuda
-    from tendrils_tpu_torch.ops.tile_geom import PAD_LO_H, PAD_LO_W
     dev = torch.device("cuda")
     n, (h, w) = 1 << 20, (1080, 1920)
     sl, time_ = 0.01, 1000.0
@@ -941,23 +1024,13 @@ def check_slice3_kernels():
     check_k7("seeded classic config-2 stream", eff, p1_s, inv_sl,
              inv_p=inv_p, out=out)
 
-    # K12 at the same rows' padded coords (clamped as the draw's aux
-    # contract has them): reads xs, ys (8 B a row) and the touched texels,
-    # writes 2 values a row. Library: `grid_sample` (bilinear, zero
-    # padding, unaligned corners) on the content coords, normalised first.
-    x, y = p1_coords(p1_s, inv_p, h, w)
-    xs, ys = x + PAD_LO_W, y + PAD_LO_H
+    # K12 at the same rows' padded coords: reads xs, ys (8 B a row) and the
+    # touched texels, writes 2 values a row.
+    xs, ys = k12_points(p1_s, inv_p, h, w)
     k12 = gather_cuda.bilinear_gather_keyed(eff, xs, ys)
     err = close("gather_keyed", [k12],
                 [gather_cuda.bilinear_gather_keyed_plain(eff, xs, ys)])
-    norm = torch.stack([(xs - PAD_LO_W) / w * 2.0 - 1.0,
-                        (ys - PAD_LO_H) / h * 2.0 - 1.0], dim=-1)[None, None]
-
-    def library():
-        return torch.nn.functional.grid_sample(
-            eff[None], norm, mode="bilinear", padding_mode="zeros",
-            align_corners=False)
-
+    library = k12_library(eff, xs, ys)
     lib_err = (library()[0, :, 0] - k12).abs().max().item()
     if lib_err > 1e-3 * eff.abs().max().item():
         fail(f"gather_keyed vs grid_sample: max |d| {lib_err:.3e}")
@@ -965,7 +1038,8 @@ def check_slice3_kernels():
     timed_row(out, "gather_keyed", err,
               lambda: gather_cuda.bilinear_gather_keyed(eff, xs, ys),
               lambda: gather_cuda.bilinear_gather_keyed_plain(eff, xs, ys),
-              16 * n + 8 * touched_texels(x, y, h, w), 20 * n,
+              16 * n + 8 * touched_texels(*p1_coords(p1_s, inv_p, h, w),
+                                          h, w), 20 * n,
               library_fn=library)
     against_library("gather_keyed",
                     lambda: gather_cuda.bilinear_gather_keyed(eff, xs, ys),
@@ -2072,6 +2146,11 @@ def main():
           f"{release.strip().splitlines()[-1]})")
 
     print("[3] kernels vs plain versions at config-2 shapes:")
+    for kind in ("write", "read"):
+        _, ms, names = l2_flush(kind)
+        print(f"  cold timings' L2 {kind} flush: {ms:.4f} device ms alone, "
+              "left out by name (" + "; ".join(
+                  k.split("(")[0][-60:] for k in names) + ")")
     checks = check_config2_kernels()
     print("[3] kernels vs plain versions at config-4 shapes:")
     checks.update(check_config4_kernels())
@@ -2105,14 +2184,16 @@ def main():
 
     runs = (launches2, launches4, launches_a, launches_bc, launches_m2,
             launches_m3, launches_big)
-    print(f"[11] every phase passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"[11] every phase passed in {time.perf_counter() - t_start:.1f} "
+          f"s; {TRACES['traces']} profiler traces, "
+          f"{TRACES['traced again']} of them taken again")
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(r.get(k, 0) for r in runs),
          **{key: checks[k][key] for key in (
-             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")}}
+             "max_abs_err", "ms", "cold_ms", "cold_clean_ms", "call_ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms")}}
         for k, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

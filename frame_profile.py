@@ -21,7 +21,9 @@ readings of the same frame:
 
   1. wall ms/frame of the plain loop (the end-to-end number);
   2. a `torch.profiler` trace of `--frames` frames: device time by kernel
-     name, launches and copies per frame, K2's four kernels together, and
+     name, launches and copies per frame, K2's four kernels together,
+     each of the port's kernels by its device ms a launch (to hold
+     against its warm and cold times alone in `chip_smoke.py`), and
      the device's busy share of the wall time (kernel, copy and fill time
      over the traced span);
   3. each stage alone: the device synchronised before and after it, so
@@ -42,9 +44,14 @@ enqueue one call of each (`host_us`), also in turns; K7 three times on each
 of the seeded classic config-2 stream, a real classic config-2 frame's
 after 30 frames, path B's paused config-4 frame's (262,144 rows) and a
 config-3 classic frame's (gather mode 2); K8 three times on config 4's
-seeded sorted stream. It needs only what the package has had since the
-gathers were first ported, so it also times an older tree's kernels (copy
-this script and `chip_smoke.py` into that tree).
+seeded sorted stream; K12 on `chip_smoke.py`'s seeded classic config-2
+stream (1,048,576 sorted points, 1080x1920, 2 channels) against
+`F.grid_sample` in 7 alternating turns, then three times cold after
+each flush (`chip_smoke.time_calls(..., cold="write")` and `"read"`: a
+buffer of twice the L2 written, or read, before each call, the flush
+left out). It needs only what the package has had
+since the gathers were first ported, so it also times an older tree's
+kernels (copy this script and `chip_smoke.py` into that tree).
 
 `--k9-k11` times K9 (config 4's pointer frame and 2 x 262,144 spread
 samples) and K11 (a real config-3 frame's merge inputs, beside the whole
@@ -163,10 +170,11 @@ def host_us(fn, calls=200):
 
 
 def profile_gathers():
-    """`--gathers`: K5, K7 and K8 alone, by device time."""
+    """`--gathers`: K5, K7, K8 and K12 alone, by device time."""
     import chip_smoke as cs
     from tendrils_tpu_torch.ops import flow as flow_ops, gather_cuda
-    print(f"K5, K7 and K8 alone on {torch.cuda.get_device_name(0)}")
+    print("K5, K7, K8 and K12 alone on "
+          f"{torch.cuda.get_device_name(0)}")
     for name in ("1m-flow", "4m-respawn-stress", "16m-live-show"):
         eff, x, y = cs.k5_inputs(name)
         print(f"K5 at {name}: {x.numel()} points, grid {tuple(eff.shape)}")
@@ -199,6 +207,25 @@ def profile_gathers():
     print(f"K8 on config 4's seeded sorted stream (262144 rows): device "
           f"{statistics.median(ms):.4f} ms (3 timings: "
           f"{', '.join(f'{t:.4f}' for t in ms)})")
+    del s, eff
+    # K12 on chip_smoke's seeded classic config-2 stream, as its phase 3
+    # checks it: against grid_sample in turns, then cold.
+    s = cs.classic_streams(1 << 20, (1080, 1920), 0.01, 3)
+    eff = flow_ops.flow_decayed(cs.random_flow((1080, 1920), 1000.0),
+                                1000.0 + cs.DT, 0.005).contiguous()
+    xs, ys = cs.k12_points(s["sorted"][1], 1.0 / s["pscale"], 1080, 1920)
+    del s
+    fn = lambda: gather_cuda.bilinear_gather_keyed(eff, xs, ys)  # noqa: E731
+    cs.close("gather_keyed", [fn()],
+             [gather_cuda.bilinear_gather_keyed_plain(eff, xs, ys)])
+    cs.against_library("K12 on the seeded classic config-2 stream "
+                       f"({xs.numel()} points)", fn,
+                       cs.k12_library(eff, xs, ys))
+    for kind in ("write", "read"):
+        ms = [cs.time_calls(fn, cold=kind)[0] for _ in range(3)]
+        print(f"  K12 cold (the L2 flushed by a {kind} before each call): "
+              f"device {statistics.median(ms):.4f} ms (3 timings: "
+              f"{', '.join(f'{t:.4f}' for t in ms)})")
 
 
 def _turns(label, fns, turns=3):
@@ -366,6 +393,14 @@ def main():
               f"{sum(calls[k] for k in k9) / n:6.1f}/frame  K9 in all ("
               + ", ".join(f"{re.search(r'splat_points_[a-z_]*', k)[0]} "
                           f"{ms / n:.4f}" for k, ms in k9.items()) + ")")
+
+    own = [(m[1], k) for k in sorted(dev, key=dev.get, reverse=True)
+           if (m := re.match(r"(?:void )?[(]anonymous namespace[)]::(\w+)",
+                             k))]
+    print("    the port's kernels in the frame, device ms a launch x "
+          "launches a frame: " + "; ".join(
+              f"{name} {dev[k] / calls[k]:.4f} x {calls[k] / n:g}"
+              for name, k in own))
 
     acc = collections.Counter()
     patched = _stage_timers(acc)

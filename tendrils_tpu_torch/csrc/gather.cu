@@ -37,13 +37,15 @@
 // stretch of tiles, where blocks of 256 rows scattered each SM's reads
 // over several distant tiles; no shared memory (staging the rows' tile
 // region there was slower in every form timed, PERF.md section 6).
-// K12, one thread per point: the gather on padded-grid float coords (x +
-// PAD_LO_W, y + PAD_LO_H), with the TPU kernel's arithmetic: weights 1 -
-// frac and 1 - that, summed per row then across rows; a corner outside the
-// content contributes 0, as the TPU's zero padding and its clamped region
-// DMA both give (gather_pallas.py:134-148). Inside [0.5, w - 0.5] x [0.5,
-// h - 0.5] of the content, where every caller clamps its points, that is
-// CLAMP_TO_EDGE sampling.
+// K12: the gather on padded-grid float coords (x + PAD_LO_W, y +
+// PAD_LO_H), with the TPU kernel's arithmetic: weights 1 - frac and 1 -
+// that, summed per row then across rows; a corner outside the content
+// contributes 0, as the TPU's zero padding and its clamped region DMA both
+// give (gather_pallas.py:134-148). Inside [0.5, w - 0.5] x [0.5, h - 0.5]
+// of the content, where every caller clamps its points, that is
+// CLAMP_TO_EDGE sampling. Its points are the draw's tile-sorted stream
+// (gather_pallas.py:310-318), so it runs in K7's blocks (PERF.md section
+// 6 has it timed beside blocks of 256 threads, one point a thread).
 //
 // Bound: bytes. K6 reads npx, npy, vl (12 B/row) and writes particles and
 // previous (32 B/row): 44 B x 262,144 rows = 11.5 MB, ~3.4 us at 3.35 TB/s
@@ -52,11 +54,11 @@
 // coords (8 B) and writes C values a point. The gathers also read the four
 // corner texels of each row; rows arrive sorted by tile (K4, K7, K8), so
 // neighbouring threads read neighbouring texels and most corners hit
-// L1/L2; K5's and K12's points arrive in the caller's order. The TPU
-// kernels sort points by tile, DMA each tile's region and gather with MXU
-// matmuls because Mosaic has no vector gather; a plain load per corner
-// computes the same function, so the port needs no sort, no un-sort and no
-// tile keys. Corner indices are clamped into the grid
+// L1/L2 (K12's points too, by its contract); K5's arrive in the caller's
+// order. The TPU kernels sort points by tile, DMA each tile's region and
+// gather with MXU matmuls because Mosaic has no vector gather; a plain
+// load per corner computes the same function, so the port needs no sort,
+// no un-sort and no tile keys. Corner indices are clamped into the grid
 // (common.cuh:bilerp_at).
 #include "common.cuh"
 
@@ -89,7 +91,7 @@ __global__ void reconstruct_kernel(const float* __restrict__ npx,
   reconstruct_row(i, n, sl_ptr[0], npx[i], npy[i], vlw[i], part, prev);
 }
 
-// K7 and K8: a block of KEYED_THREADS threads takes KEYED_THREADS x r
+// K7, K8 and K12: a block of KEYED_THREADS threads takes KEYED_THREADS x r
 // consecutive sorted rows (`span`), so one SM's L1 serves one stretch of
 // tiles; blocks stride over the spans past the first two waves. Thread j
 // takes rows base + j + k x KEYED_THREADS, k < r: a warp's loads and
@@ -180,38 +182,54 @@ __global__ void __launch_bounds__(KEYED_THREADS, 2)
   }
 }
 
-// Texel (r, c) of a plane, or 0 outside the content.
-__device__ __forceinline__ float texel_or_zero(const float* plane, int h,
-                                               int w, int r, int c) {
-  return (r >= 0 && r < h && c >= 0 && c < w) ? plane[(long long)r * w + c]
-                                              : 0.0f;
-}
-
-__global__ void gather_keyed_kernel(const float* __restrict__ grid, int c,
-                                    int h, int w,
-                                    const float* __restrict__ xs,
-                                    const float* __restrict__ ys, int m,
-                                    float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const float gx = xs[i] - 0.5f;
-  const float gy = ys[i] - 0.5f;
-  const float c0f = floorf(gx);
-  const float r0f = floorf(gy);
-  const float wx0 = 1.0f - (gx - c0f);
-  const float wy0 = 1.0f - (gy - r0f);
-  const float wx1 = 1.0f - wx0;
-  const float wy1 = 1.0f - wy0;
-  const int c0 = (int)c0f - PAD_LO_W;
-  const int r0 = (int)r0f - PAD_LO_H;
+// K12 in K7's blocks (its input is the draw's tile-sorted stream, so the
+// same locality holds). Per point, once: the floor, the weights, the two
+// corner rows and columns and the four in-content predicates; then per
+// channel four predicated read-only loads and the TPU kernel's expression
+// order. The coords and the output take plain loads and stores: with
+// evict-first hints (`__ldcs`/`__stcs`) it ran slower warm and no faster
+// after a clean L2 (PERF.md, section 6).
+__global__ void __launch_bounds__(KEYED_THREADS, 2)
+    gather_keyed_kernel(const float* __restrict__ grid, int c, int h, int w,
+                        const float* __restrict__ xs,
+                        const float* __restrict__ ys, int m, int r,
+                        float* __restrict__ out) {
+  const long long span = (long long)KEYED_THREADS * r;
   const long long plane = (long long)h * w;
-  for (int k = 0; k < c; ++k) {
-    const float* g = grid + k * plane;
-    const float top = texel_or_zero(g, h, w, r0, c0) * wx0 +
-                      texel_or_zero(g, h, w, r0, c0 + 1) * wx1;
-    const float bot = texel_or_zero(g, h, w, r0 + 1, c0) * wx0 +
-                      texel_or_zero(g, h, w, r0 + 1, c0 + 1) * wx1;
-    out[(long long)k * m + i] = top * wy0 + bot * wy1;
+  for (long long base = blockIdx.x * span; base < m;
+       base += gridDim.x * span) {
+    for (int k = 0; k < r; ++k) {
+      const long long i = base + threadIdx.x + (long long)k * KEYED_THREADS;
+      if (i >= m) break;
+      const float gx = xs[i] - 0.5f;
+      const float gy = ys[i] - 0.5f;
+      const float c0f = floorf(gx);
+      const float r0f = floorf(gy);
+      const float wx0 = 1.0f - (gx - c0f);
+      const float wy0 = 1.0f - (gy - r0f);
+      const float wx1 = 1.0f - wx0;
+      const float wy1 = 1.0f - wy0;
+      const int c0 = (int)c0f - PAD_LO_W;
+      const int r0 = (int)r0f - PAD_LO_H;
+      const bool col0 = c0 >= 0 && c0 < w;
+      const bool col1 = c0 + 1 >= 0 && c0 + 1 < w;
+      const bool row0 = r0 >= 0 && r0 < h;
+      const bool row1 = r0 + 1 >= 0 && r0 + 1 < h;
+      const bool p00 = row0 && col0, p01 = row0 && col1;
+      const bool p10 = row1 && col0, p11 = row1 && col1;
+      const long long o00 = (long long)r0 * w + c0;
+      const long long o10 = o00 + w;
+      for (int ch = 0; ch < c; ++ch) {
+        const float* g = grid + ch * plane;
+        const float t00 = p00 ? __ldg(g + o00) : 0.0f;
+        const float t01 = p01 ? __ldg(g + o00 + 1) : 0.0f;
+        const float t10 = p10 ? __ldg(g + o10) : 0.0f;
+        const float t11 = p11 ? __ldg(g + o10 + 1) : 0.0f;
+        const float top = t00 * wx0 + t01 * wx1;
+        const float bot = t10 * wx0 + t11 * wx1;
+        out[(long long)ch * m + i] = top * wy0 + bot * wy1;
+      }
+    }
   }
 }
 
@@ -294,12 +312,14 @@ extern "C" int tt_gather_keyed_q15(const float* eff, int h, int w,
   return (int)cudaGetLastError();
 }
 
+// K12: `r` points a thread, `blocks` blocks of KEYED_THREADS
+// (`gather_cuda.keyed_layout`).
 extern "C" int tt_gather_keyed(const float* grid, int c, int h, int w,
                                const float* xs, const float* ys, int m,
-                               float* out, void* stream) {
+                               int r, int blocks, float* out, void* stream) {
   if (m > 0) {
-    gather_keyed_kernel<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
-        grid, c, h, w, xs, ys, m, out);
+    gather_keyed_kernel<<<blocks, KEYED_THREADS, 0, (cudaStream_t)stream>>>(
+        grid, c, h, w, xs, ys, m, r, out);
   }
   return (int)cudaGetLastError();
 }

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P],
     "tt_gather_keyed_q15": [_P, _I, _I, _P, _P, _I, _I, _I, _F, _P, _P],
-    "tt_gather_keyed": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "tt_gather_keyed": [_P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P],
     "tt_reorder_compact": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "tt_reorder_apply": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P,
                          _P, _P, _P],

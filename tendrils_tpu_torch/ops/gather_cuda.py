@@ -32,8 +32,8 @@ from .tile_geom import HALF, PAD_LO_H, PAD_LO_W
 
 _F32 = torch.float32
 _I32 = torch.int32
-# K7 and K8: threads a block (csrc/gather.cu KEYED_THREADS) and the most
-# rows a thread takes.
+# K7, K8 and K12: threads a block (csrc/gather.cu KEYED_THREADS) and the
+# most rows a thread takes.
 KEYED_THREADS = 1024
 KEYED_MAX_ROWS = 8
 # K5's interleaved pair, one per (h, w, device), reused by every call: the
@@ -43,7 +43,7 @@ _pairs = {}
 
 
 def keyed_layout(n, sms):
-    """`(r, blocks)` of K7 and K8 on `n` sorted rows: `r` rows a thread,
+    """`(r, blocks)` of K7, K8 and K12 on `n` sorted rows: `r` rows a thread,
     min(8, max(1, ceil(n / (sms x KEYED_THREADS)))), so that the rows fill
     the card's `sms` SMs before a block's span grows; one block a span of
     KEYED_THREADS x r consecutive rows, at most two waves of two blocks an
@@ -213,8 +213,11 @@ def bilinear_gather_keyed(grid, xs, ys):
     bilinearly, a corner outside the content weighing 0; on points within
     half a texel of the content's edge texel centres, as every caller
     clamps them, this is CLAMP_TO_EDGE sampling. Returns `f32[C, M]` in
-    input order. (The JAX function also takes each point's tile key, which
-    its tile-binned matmuls need; the port's per-point loads need none.)"""
+    input order. The points are the draw's tile-sorted stream (the JAX
+    function's contract), taken in K7's blocks of consecutive points
+    (`keyed_layout`). (The JAX function also takes each point's tile key,
+    which its tile-binned matmuls need; the port's per-point loads need
+    none.)"""
     if cuda_lib.on_cpu(grid, xs, ys):
         return bilinear_gather_keyed_plain(grid, xs, ys)
     c, h, w = grid.shape
@@ -224,7 +227,7 @@ def bilinear_gather_keyed(grid, xs, ys):
     cuda_lib.check(ys, "ys", _F32, (m,))
     out = torch.empty((c, m), dtype=_F32, device=grid.device)
     cuda_lib.launch("tt_gather_keyed", "gather_keyed", grid, c, h, w, xs, ys,
-                    m, out)
+                    m, *_keyed_launch(grid.device, m), out)
     return out
 
 

@@ -1,9 +1,14 @@
 """The port's gathers against the JAX package's Pallas gathers (interpret
-mode): K5 `bilinear_gather`, K4 `gather_reconstruct_p1` and K8
-`bilinear_gather_keyed_p1`, including points on and past the last row and
-column, and INERT rows."""
+mode): K5 `bilinear_gather`, K4 `gather_reconstruct_p1`, K8
+`bilinear_gather_keyed_p1`, K7 `bilinear_gather_keyed_q15` and K12
+`bilinear_gather_keyed`, including points on and past the last row and
+column, and INERT rows; and the keyed gathers' launch layout (K12's read
+from `csrc/gather.cu` and transcribed)."""
 
+import functools
 import pathlib
+import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -288,11 +293,10 @@ def test_bilinear_gather_keyed_q15_matches_jax(grid_hw, stream):
     assert (tout >= 0).all()
 
 
-def test_bilinear_gather_keyed_matches_jax():
-    """K12 (plain version on the CPU) against the JAX keyed gather on a
-    fused draw's sorted streams (its gather keys and packed p1, unpacked
-    and clamped to padded float coords as the draw's aux contract has it),
-    at the JAX test's own bound (tests/test_gather_pallas.py:69-71)."""
+@functools.lru_cache(maxsize=None)
+def _keyed_draw():
+    """A fused draw's sorted streams (its gather keys and packed p1) on a
+    64 x 384 grid, n = 1024, and the state of the generator after it."""
     from tendrils_tpu.ops import draw_pallas as jdraw
     rng = np.random.default_rng(6)
     h, w = 64, 384
@@ -311,20 +315,38 @@ def test_bilinear_gather_keyed_matches_jax():
         j(np.ones(n, np.float32)), jnp.float32(0.03), jnp.float32(100.0),
         idx=jnp.arange(n, dtype=jnp.int32), interpret=True, samples=2)
     gkey, p1_s = (np.asarray(a)[:n] for a in aux[1:])
+    return (h, w), gkey, p1_s, rng.bit_generator.state
+
+
+# K12 with 1, 2 and 3 channels, on a whole number of 1024-point blocks and
+# on a part block.
+@pytest.mark.parametrize("m", [1024, 1000])
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_bilinear_gather_keyed_matches_jax(c, m):
+    """K12 (plain version on the CPU) against the JAX keyed gather on a
+    fused draw's sorted streams (its gather keys and packed p1, unpacked
+    and clamped to padded float coords as the draw's aux contract has it;
+    the first `m` points), at the JAX test's own bound
+    (tests/test_gather_pallas.py:69-71)."""
+    (h, w), gkey, p1_s, state = _keyed_draw()
+    gkey, p1_s = gkey[:m], p1_s[:m]
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
     inv_p = 1.0 / pos_scale_for((h, w))
     xs = np.clip((p1_s & HALF).astype(np.float32) * np.float32(inv_p),
                  PAD_LO_W + 0.5, PAD_LO_W + w - 0.5).astype(np.float32)
     ys = np.clip((p1_s >> 15).astype(np.float32) * np.float32(inv_p),
                  PAD_LO_H + 0.5, PAD_LO_H + h - 0.5).astype(np.float32)
-    grid = rng.uniform(-2, 2, (2, h, w)).astype(np.float32)
+    grid = rng.uniform(-2, 2, (c, h, w)).astype(np.float32)
+    j = jnp.asarray
     jout = jgather.bilinear_gather_keyed(j(grid), j(xs), j(ys), j(gkey),
                                          interpret=True)
     cuda_lib.reset_counts()
     tout = tgather.bilinear_gather_keyed(*(torch.as_tensor(a)
                                            for a in (grid, xs, ys)))
     assert cuda_lib.plain_calls["gather_keyed"] == 1
-    np.testing.assert_allclose(tout.numpy(), np.asarray(jout)[:, :n],
-                               atol=5e-4)
+    assert tout.shape == (c, m)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=5e-4)
     # On the clamped domain it is CLAMP_TO_EDGE sampling.
     np.testing.assert_allclose(
         tout.numpy(), np.asarray(jsample.bilinear_sample(
@@ -364,6 +386,91 @@ def test_keyed_layout_sizes_rows_from_n(n, sms, want):
     src = (pathlib.Path(tgather.__file__).resolve().parents[1] / "csrc"
            / "gather.cu").read_text()
     assert f"KEYED_THREADS = {tgather.KEYED_THREADS};" in src
+
+
+GATHER_CU = (pathlib.Path(tgather.__file__).resolve().parents[1] / "csrc"
+             / "gather.cu").read_text()
+
+
+def _k12_source():
+    """`gather_keyed_kernel` and its C entry, whitespace collapsed."""
+    m = re.search(r"__global__ void __launch_bounds__\(KEYED_THREADS, 2\)"
+                  r"\s+gather_keyed_kernel\(.*?\n}\n", GATHER_CU, re.S)
+    assert m, "gather_keyed_kernel with K7's launch bounds"
+    entry = re.search(r'extern "C" int tt_gather_keyed\(.*?\n}\n',
+                      GATHER_CU, re.S)
+    assert entry
+    return " ".join(m.group(0).split()), " ".join(entry.group(0).split())
+
+
+def test_k12_launch_is_k7s():
+    """K12 runs K7's blocks: KEYED_THREADS threads, point base + thread +
+    k x KEYED_THREADS for k < r, the blocks striding over spans of
+    KEYED_THREADS x r points; the loop transcribed below is this one."""
+    kernel, entry = _k12_source()
+    assert f"constexpr int KEYED_THREADS = {tgather.KEYED_THREADS};" \
+        in GATHER_CU
+    for expr in ("const long long span = (long long)KEYED_THREADS * r;",
+                 "for (long long base = blockIdx.x * span; base < m; "
+                 "base += gridDim.x * span) {",
+                 "for (int k = 0; k < r; ++k) {",
+                 "const long long i = base + threadIdx.x + (long long)k * "
+                 "KEYED_THREADS;",
+                 "if (i >= m) break;"):
+        assert expr in kernel, expr
+    assert "gather_keyed_kernel<<<blocks, KEYED_THREADS, 0," in entry
+
+
+def _k12_visits(m, r, blocks):
+    """How often the transcribed K12 loop visits each point of [0, m)."""
+    t = tgather.KEYED_THREADS
+    span = t * r
+    seen = np.zeros(m, np.int64)
+    lanes = np.arange(t)
+    for b in range(blocks):
+        for base in range(b * span, m, blocks * span):
+            for k in range(r):
+                i = base + lanes + k * t
+                np.add.at(seen, i[i < m], 1)
+    return seen
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """K12's wrapper on CPU tensors as if they lay on a card of 132 SMs:
+    the launch's arguments recorded in `card.calls`."""
+    fake = types.SimpleNamespace(sms=132, calls=[])
+
+    def launch(name, counter, *args, kernels=1):
+        fake.calls.append((name, counter, args))
+
+    monkeypatch.setattr(cuda_lib, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(cuda_lib, "launch", launch)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(
+                            multi_processor_count=fake.sms))
+    return fake
+
+
+@pytest.mark.parametrize("m, sms", [
+    (1, 132), (1000, 132),
+    (tgather.KEYED_THREADS * 8 + 1, 1),  # a span of r = 8, then one point
+    (1 << 20, 132),                      # config 2: one block an SM
+    (1 << 22, 132),                      # config 3: the blocks stride
+])
+def test_k12_wrapper_launches_keyed_layout(card, m, sms):
+    """The wrapper passes `keyed_layout(m, SMs)` as (r, blocks), and that
+    layout visits every point of [0, m) exactly once."""
+    card.sms = sms
+    grid = torch.zeros((2, 4, 8))
+    xs = torch.zeros(m)
+    out = tgather.bilinear_gather_keyed(grid, xs, xs)
+    (name, counter, args), = card.calls
+    assert (name, counter) == ("tt_gather_keyed", "gather_keyed")
+    r, blocks = tgather.keyed_layout(m, sms)
+    assert args[6:9] == (m, r, blocks) and args[9] is out
+    assert out.shape == (2, m)
+    assert (_k12_visits(m, r, blocks) == 1).all()
 
 
 def test_pair_scratch_is_kept_per_shape():
