@@ -69,7 +69,34 @@ Phases (each prints a line; any failure exits non-zero before the result):
      frame falling back;
  10. at config 3 one classic frame and one paused `frame()` (gather mode
      2, K7); config 5 (`models.build("16m-live-show")`) headless, on and
-     off: 2 warm steps and 3 timed runs of 10.
+     off: 2 warm steps and 3 timed runs of 10;
+ 12. config 1 as `bench.py:180-186` builds it (`models.build(
+     "default-preview", view_res=(720, 1280))`, a ball spawn, then
+     `flowWeight = 0`): two facade frames and `run_headless` for 60 steps
+     (resident: K1, K2 and K3 view-only, K6), then one classic frame (the
+     p0 + rgba8 view-only K2); the counters must show no K4, K5 or K7 and
+     no plain version, the flow grid must stay bit-equal to its value
+     before the frames; JAX's contract (tests/test_carry_force.py:177-227)
+     on the card, classic and resident: from one converted state, 4 frames
+     gated and 4 with the gate forced off give particles equal by identity
+     and views equal bit for bit; then ms/frame and particle-steps/s as the
+     median of 3 timed 60-step runs, and a small run against the CPU;
+ 13. config 5's show frame uncut on phase 10's engine: `step_draw_io(
+     bokeh=(3.0, 40.0))` with the `noiseScale` modulation of
+     `bench.py:358-365`, 2 warm frames and 3 timed runs of 10, the screen
+     [4, 2160, 3840] and finite, beside phase 10's headless ms/frame;
+     then bokeh alone on the show frame's view in both stack forms (the
+     windowed boxes, the banded matmuls), each with its max |d| and p99.9
+     against the same bokeh in float64 on the card and its device ms; the
+     facade's form must be within 5e-3 max and 2e-3 p99.9.
+Phase 6 also runs the demo's vignette blur (`feeds.DEMO_BLUR`) on 3
+config-4 io frames, their screens checked and timed. Phase 3 also holds
+K2's view-only launch (flow_off) in every variant on config 1's and
+config 2's seeded streams, bit-equal to planes 5-10 of the 11-channel
+call on the same stream, the same bits on two calls, within 1e-5 of each
+channel's max of its plain version, and K3 view-only against its plain
+version and bit-equal to K3's view from the 11 channels, timed at config
+1.
 Phase 3 holds K2 (four launches: the plan, the tile pass in shared
 memory, the strays, the conversion of its int64 sums) in every variant
 on three more sorted streams: a real config-2 frame's after 30 frames, a
@@ -117,7 +144,8 @@ IO_FRAMES = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 REPS = 20  # back-to-back calls a kernel or a library call is timed over
-PLAIN_REPS = 3  # the same for a plain version (up to ~0.4 s a call)
+PLAIN_REPS = 1  # the same for a plain version: a plain splat's trace holds
+# many small launches, which the profiler is slow to read
 LIB_ROUNDS = 7  # alternating turns of a kernel against its library call
 PROFILE_TRIES = 3  # traces a timing takes before it gives up
 PAD_LAUNCHES = 64  # spin kernels that open a trace (`time_calls`)
@@ -166,6 +194,14 @@ KERNELS = {
                 "tendrils_tpu/ops/draw_pallas.py:758"),
     "pack_p0_rgba_g2": ("tendrils_tpu_torch/csrc/pack.cu",
                         "tendrils_tpu/ops/draw_pallas.py:758"),
+    # flow_off (config 1): K2's view-only launch, resident and classic, and
+    # K3's view-only variant.
+    "splat_view": ("tendrils_tpu_torch/csrc/splat.cu",
+                   "tendrils_tpu/ops/draw_pallas.py:179"),
+    "splat_p0_rgba_view": ("tendrils_tpu_torch/csrc/splat.cu",
+                           "tendrils_tpu/ops/draw_pallas.py:179"),
+    "resolve_view": ("tendrils_tpu_torch/csrc/resolve.cu",
+                     "tendrils_tpu/ops/draw_pallas.py:1284"),
 }
 CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
                 "bilinear_gather")
@@ -195,6 +231,17 @@ CLASSIC_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": K2, "resolve": 1,
               "gather_keyed_q15": 1}
 PAUSED_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": K2,
              "gather_keyed_q15": 1}
+# Config 1 (flowWeight 0): the resident frame on K2 and K3 view-only and K6,
+# the classic frame on the p0 + rgba8 view-only K2; no gather.
+CONFIG1_RESIDENT = {"pack": 1, "splat_view": K2, "resolve_view": 1,
+                    "reconstruct_resident": 1}
+CONFIG1_CLASSIC = {"pack_p0_rgba": 1, "splat_p0_rgba_view": K2,
+                   "resolve_view": 1}
+SHOW_BOKEH = (3.0, 40.0)  # config 5's show frame (`bench.py:352-378`)
+# Bokeh in f32 against float64 at 2160x3840, the most |d| either stack form
+# may read: both read ~3e-7 on an H100; TF32 or bf16 (~1e-3 relative on
+# values near 1) would read two orders over.
+BOKEH_F32_MAX = 1e-5
 SEG = 10  # headless steps of a config-3 segment and a config-5 timed run
 
 
@@ -232,13 +279,16 @@ def time_calls(fn, reps=REPS, cold=None):
     than once a call, so `fn` shares none of them); the call ms is None.
 
     A trace counts only if it holds a device event for each launch, copy
-    and fill that the host's CUDA runtime calls in it asked for. After a
-    trace of many launches (a plain splat's), the profiler loses the
-    first device events of later traces, and now and then it hands back a
-    trace with none, so each trace opens with PAD_LAUNCHES spin kernels,
-    left out by name, twice as many at each try; a trace that still
-    misses an event is traced again, and after PROFILE_TRIES the run
-    fails."""
+    and fill that the host's CUDA runtime calls in it asked for, and if
+    each kernel, copy and fill ran a whole number of times a call (`fn`
+    launches the same work on each call): a trace can lose events of its
+    own and hold as many left over from the trace before it, which keeps
+    the total and halves the time. After a trace of many launches (a
+    plain splat's), the profiler loses the first device events of later
+    traces, and now and then it hands back a trace with none, so each
+    trace opens with PAD_LAUNCHES spin kernels, left out by name, twice as
+    many at each try; a trace that still fails a check is traced again,
+    and after PROFILE_TRIES the run fails."""
     from torch.profiler import ProfilerActivity, profile
     flush, _, flush_names = l2_flush(cold) if cold else (None, 0.0, ())
     fn()
@@ -267,6 +317,7 @@ def time_calls(fn, reps=REPS, cold=None):
             torch.cuda.synchronize()
         asked = recorded = 0
         names = {}
+        uneven = {}
         for ev in prof.key_averages():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 if ev.key.startswith(RUNTIME_CALLS):
@@ -279,15 +330,20 @@ def time_calls(fn, reps=REPS, cold=None):
                 if ev.count > reps:
                     fail(f"cold timing: {ev.key} ran {ev.count} times in "
                          f"{reps} calls, the L2 flush runs it once a call")
-            elif ev.self_device_time_total > 0:
+                continue
+            if ev.count % reps:
+                uneven[ev.key.split("(")[0][-60:]] = ev.count
+            if ev.self_device_time_total > 0:
                 names[ev.key] = ev.self_device_time_total / 1e3 / reps
         TRACES["traces"] += 1
-        if names and recorded == asked - pads:
+        if names and recorded == asked - pads and not uneven:
             return sum(names.values()), call_ms, names
         TRACES["traced again"] += 1
         print(f"  (a trace after {pads} spin kernels holds {recorded} of "
-              f"the {asked - pads} device events its calls asked for; "
-              f"tracing again)")
+              f"the {asked - pads} device events its calls asked for"
+              + (f", and events that ran no whole number of times in its "
+                 f"{reps} calls: {uneven}" if uneven else "")
+              + "; tracing again)")
         time.sleep(1.0)
     fail(f"torch.profiler lost device events in each of {PROFILE_TRIES} "
          f"traces")
@@ -449,16 +505,18 @@ def kw_plain(kw):
     return {k: v for k, v in kw.items() if k != "idx_bits"}
 
 
-def splat_work(keym_s, vl_s, hp, wp, words):
+def splat_work(keym_s, vl_s, hp, wp, words, flow_off=False):
     """K2's bytes and operations on a sorted stream (2 samples a segment):
-    `words` i32 words a row read, the padded 11-channel accumulator
-    written once; each live sample adds its box footprints (a width-W box
-    covers ceil(W) + 1 texels an axis but where it lies on texel edges:
-    flowWidth 5 over 5 channels, lineWidth 1 over 6) at 3 operations a
-    deposit, plus ~80 to derive it."""
+    `words` i32 words a row read, the padded 11-channel accumulator (6
+    with `flow_off`) written once; each live sample adds its box
+    footprints (a width-W box covers ceil(W) + 1 texels an axis but where
+    it lies on texel edges: flowWidth 5 over 5 channels, lineWidth 1 over
+    6) at 3 operations a deposit, plus ~80 to derive it."""
     live_samples = 2 * ((vl_s >> 30) & 1).sum().item()
-    deposits = live_samples * ((5 + 1) ** 2 * 5 + (1 + 1) ** 2 * 6)
-    return (4 * words * keym_s.numel() + 11 * hp * wp * 4 + 128,
+    per_sample = (1 + 1) ** 2 * 6 + (0 if flow_off else (5 + 1) ** 2 * 5)
+    deposits = live_samples * per_sample
+    planes = 6 if flow_off else 11
+    return (4 * words * keym_s.numel() + planes * hp * wp * 4 + 128,
             3 * deposits + 80 * live_samples)
 
 
@@ -495,7 +553,8 @@ def exact_splat(scal, p1, vl, **kw):
 
 
 def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
-                       grid_hw, pscale, p0=None, rgba=None, exact=False):
+                       grid_hw, pscale, p0=None, rgba=None, exact=False,
+                       flow_off=False):
     """K2 on one sorted stream in every variant (words the stream lacks
     made up: p0 by `p0_words`, rgba8 seeded), each within 1e-5 of each
     channel's max of `splat_plain` and the same bits on a second call
@@ -506,8 +565,13 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
     samples the stray pass added. With `exact`, the
     stream's own variant also within 1e-5 of each channel's max of
     `exact_splat`, the plain version's distance from it printed beside.
-    Returns `({variant: max |d|}, strays, split tiles)`."""
+    `flow_off` is a recorded call's own: the streams held here are of
+    frames with the flow on (the view-only launch has
+    `check_view_only_kernels`). Returns `({variant: max |d|}, strays,
+    split tiles)`."""
     from tendrils_tpu_torch.ops import draw_cuda
+    if flow_off:
+        fail(f"K2 ({label}): a view-only call where the flow is on")
     n = p1.numel()
     p0_w = p0 if p0 is not None else p0_words(scal, p1, vl, grid_hw, pscale)
     rgba_w = rgba if rgba is not None else torch.as_tensor(
@@ -1106,16 +1170,19 @@ def classic(eng):
     return eng
 
 
-def check_state(sim, label):
+def check_state(sim, label, drawn="flow"):
+    """Finite state, alive particles and texels with weight in the `drawn`
+    grid ("flow"; "view" at flowWeight 0, where nothing draws the flow)."""
     for name in ("particles", "previous", "flow", "view", "force"):
         if getattr(sim, name) is None:
             continue
         if not torch.isfinite(getattr(sim, name)).all():
             fail(f"{label}: non-finite {name}")
     alive = ((sim.particles[0] > -9e5).sum().item())
-    texels = (sim.flow[3] > 1e-3).sum().item()
+    grid = sim.flow if drawn == "flow" else sim.view[0]
+    texels = (grid[3] > 1e-3).sum().item()
     if alive == 0 or texels == 0:
-        fail(f"{label}: {alive} alive particles, {texels} flow texels")
+        fail(f"{label}: {alive} alive particles, {texels} {drawn} texels")
     return alive, texels
 
 
@@ -1129,8 +1196,9 @@ def agree(cpu, gpu, label):
     (1-px smoothed rtol 5e-2 / atol 2e-2, totals rtol 1e-3; the card's
     fixed-point sums and the CPU's f32 sums round differently)."""
     def smooth(img):
-        k = torch.ones(1, 1, 3, 3) / 9.0
-        return torch.nn.functional.conv2d(img[:, None], k, padding=1)[:, 0]
+        """The 3x3 box mean, zero-padded (a conv with ones / 9)."""
+        return torch.nn.functional.avg_pool2d(img[:, None], 3, stride=1,
+                                              padding=1)[:, 0]
 
     err = (by_id(cpu.sim) - by_id(gpu.sim)).abs().max().item()
     if err > 1e-4:
@@ -1323,7 +1391,7 @@ def run_config4():
     """Phase 6: config 4 through the entry points; returns the launch
     counts."""
     from tendrils_tpu_torch import models
-    from tendrils_tpu_torch.feeds import IoFeed
+    from tendrils_tpu_torch.feeds import DEMO_BLUR, IoFeed
     from tendrils_tpu_torch.ops import cuda_lib
     eng = models.build("optical-flow-driven")
     feed = IoFeed(eng)
@@ -1332,12 +1400,11 @@ def run_config4():
     feed.frame(1)
     torch.cuda.synchronize()
     times = []
-    i = 2
+    frame_i = itertools.count(2)
     for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(IO_FRAMES):
-            feed.frame(i)
-            i += 1
+            feed.frame(next(frame_i))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = dict(cuda_lib.launches)
@@ -1349,6 +1416,17 @@ def run_config4():
             or launches["gather_keyed_p1"] != frames:
         fail(f"optical-flow-driven launches {launches}, plain calls {plain}")
     alive, texels = check_state(eng.sim, "optical-flow-driven")
+    # The demo's vignette blur on the same io frame: one warm frame (the
+    # level LUT is made on the host at first use), 3 timed.
+    feed.blur = DEMO_BLUR
+    screens = [feed.frame(next(frame_i))]
+    sec_blur = timed_frames(lambda: screens.append(feed.frame(next(frame_i))),
+                            3)
+    h, w = eng.config.view_res
+    if any(tuple(sc.shape) != (4, h, w) or not torch.isfinite(sc).all()
+           for sc in screens):
+        fail("optical-flow-driven with the demo's blur: a screen of the "
+             "wrong shape or not finite")
     sec = statistics.median(times) / IO_FRAMES
     err = agree_io_with_plain()
     runs = ", ".join(f"{t / IO_FRAMES * 1e3:.3f}" for t in times)
@@ -1357,7 +1435,10 @@ def run_config4():
           f"no plain calls; {alive} alive, {texels} flow texels; "
           f"{sec * 1e3:.3f} ms/frame, {eng.config.n / sec:.0f} "
           f"particle-steps/s (median of 3 x {IO_FRAMES} frames: {runs} "
-          f"ms/frame); card vs CPU particles max |d| {err:.2e}")
+          f"ms/frame); with the demo's vignette blur {DEMO_BLUR}, screen "
+          f"[4, {h}, {w}] finite, {sec_blur * 1e3:.3f} ms/frame (3 frames "
+          f"after a warm one); "
+          f"card vs CPU particles max |d| {err:.2e}")
     return launches
 
 
@@ -1368,7 +1449,8 @@ def check_launches(label, frames, per_frame, launches, plain):
               "splat_rgba", "resolve", "gather_keyed_q15",
               "gather_reconstruct", "reconstruct_resident", "gather_keyed_p1",
               "splat_points", "pack_g3", "pack_p0_rgba_g2", "reorder_compact",
-              "reorder_apply"):
+              "reorder_apply", "splat_view", "splat_rgba_view",
+              "splat_p0_rgba_view", "resolve_view"):
         if launches.get(k, 0) != frames * per_frame.get(k, 0):
             fail(f"{label}: {k} launched {launches.get(k, 0)} times, want "
                  f"{frames * per_frame.get(k, 0)} (launches {launches})")
@@ -1788,6 +1870,85 @@ def check_splat_streams():
         fail("K2: the long-segment stream has no strays")
 
 
+def check_view_only_kernels():
+    """K2's view-only launch (flow_off) in every variant on config 1's
+    seeded stream (65,536 rows, 720x1280) and config 2's (1,048,576,
+    1080x1920): within 1e-5 of each channel's max of its plain version, the
+    same bits on two calls, and bit-equal to planes 5-10 of the 11-channel
+    call on the same stream; K3's view-only variant against its plain
+    version and bit-equal to the view K3 makes from the 11 channels. The
+    config-1 path's variants are timed there."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    from tendrils_tpu_torch.ops.tile_geom import pad_dims
+    dev = torch.device("cuda")
+    out = {}
+    for label, n, (h, w), timed in (("config-1", 1 << 16, (720, 1280), True),
+                                    ("config-2", 1 << 20, (1080, 1920),
+                                     False)):
+        hp, wp = pad_dims(h, w)
+        s = sorted_streams(n, (h, w), 0.01, 2)
+        scal, keym_s, p1, vl = s["scal"], s["keym_s"], s["p1_s"], s["vl_s"]
+        args = (scal, keym_s, p1, vl)
+        kw = dict(idx_bits=20, samples=2, grid_hw=(h, w), pscale=s["pscale"])
+        p0_w = p0_words(scal, p1, vl, (h, w), s["pscale"])
+        rgba_w = torch.as_tensor(np.random.default_rng(9).integers(
+            0, 1 << 31, n).astype(np.int32), device=dev)
+        errs = {}
+        for name, v_p0, v_rgba in (("splat_view", None, None),
+                                   ("splat_rgba_view", None, rgba_w),
+                                   ("splat_p0_rgba_view", p0_w, rgba_w)):
+            vkw = dict(kw, p0=v_p0, rgba=v_rgba, flow_off=True)
+            got = draw_cuda.splat(*args, **vkw)
+            errs[name] = within_channel_max(
+                f"{name} ({label})", got,
+                draw_cuda.splat_plain(scal, p1, vl, **kw_plain(vkw)))
+            if not torch.equal(got, draw_cuda.splat(*args, **vkw)):
+                fail(f"{name} ({label}): two calls on one input differ")
+            full = draw_cuda.splat(*args, **dict(vkw, flow_off=False))
+            if not torch.equal(got, full[draw_cuda.N_FLOW:]):
+                fail(f"{name} ({label}): "
+                     f"{(got != full[draw_cuda.N_FLOW:]).sum().item()} "
+                     "texels differ from the 11-channel call's view planes")
+            if timed and name != "splat_rgba_view":
+                timed_row(out, name, errs[name],
+                          lambda a=args, k=vkw: draw_cuda.splat(*a, **k),
+                          lambda k=kw_plain(vkw): draw_cuda.splat_plain(
+                              scal, p1, vl, **k),
+                          *splat_work(keym_s, vl, hp, wp,
+                                      3 if v_p0 is None else 5,
+                                      flow_off=True),
+                          label=f" ({label}, {n} rows)")
+            del got, full
+        print(f"  K2 view-only on the seeded {label} stream ({n} rows): every "
+              f"variant bit-equal to planes 5-10 of the 11-channel call, the "
+              f"same bits on two calls, within 1e-5 of each channel's max of "
+              f"its plain version (max |d| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + ")")
+        if not timed:
+            continue
+        # K3 view-only: reads the 6 accumulator planes' content and the
+        # old view, writes the new view: 56 B a pixel.
+        acc = draw_cuda.splat(*args, **kw, flow_off=True)
+        full = draw_cuda.splat(*args, **kw)
+        view = torch.rand((4, h, w), device=dev)
+        rscal = draw_cuda._resolve_scal(
+            torch.tensor([0.1333, 0.1333, 0.1333, 0.05], device=dev), 0.0,
+            1000.0, 1000.0 + DT, 0.005, 5.0, 1.0, dev)
+        got = draw_cuda.resolve_view(rscal, acc, view)
+        err = close("resolve_view", [got],
+                    [draw_cuda.resolve_view_plain(rscal, acc, view)])
+        if not torch.equal(got, draw_cuda.resolve(
+                rscal, full, random_flow((h, w), 1000.0), view)[1]):
+            fail("resolve_view: differs from K3's view on the 11 channels")
+        print("  K3 view-only: bit-equal to the view K3 makes from the 11 "
+              "channels")
+        timed_row(out, "resolve_view", err,
+                  lambda: draw_cuda.resolve_view(rscal, acc, view),
+                  lambda: draw_cuda.resolve_view_plain(rscal, acc, view),
+                  56 * h * w, 20 * h * w, label=f" ({label})")
+    return out
+
+
 def path_b_k7():
     """K7's inputs on path B: the paused `frame()` at config 4 with the
     demo's colour maps (262,144 rows, 720x1280), after 2 running io
@@ -2039,7 +2200,8 @@ def run_merge_config3():
 def run_config5_and_mode2(eng3):
     """Phase 10: config 5 headless, merge on and off (2 warm steps, 3 timed
     runs of SEG steps each); then at config 3 one classic frame and one
-    paused `frame()` (gather mode 2, K7)."""
+    paused `frame()` (gather mode 2, K7). Returns the launch counts, the
+    config-5 engine and its headless ms/frame with the merge off."""
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.ops import cuda_lib
     total = {}
@@ -2109,11 +2271,226 @@ def run_config5_and_mode2(eng3):
               f"flow texels; {med[merge] * 1e3:.3f} ms/frame (3 x {SEG}: "
               f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), "
               f"{eng.config.n / med[merge]:.0f} particle-steps/s")
-    return total
+    return total, eng, med[False] * 1e3
+
+
+def config1():
+    """BASELINE config 1 as `bench.py:180-186` builds it: 256² particles
+    at 720x1280, 2 flow and view samples, a ball spawn, then
+    `flowWeight = 0`."""
+    from tendrils_tpu_torch import models
+    eng = models.build("default-preview", view_res=(720, 1280))
+    eng.state["flowWeight"] = 0.0
+    return eng
+
+
+def flow_off_contract(eng):
+    """JAX's contract (tests/test_carry_force.py:177-227) on the card: from
+    one converted state at flowWeight 0, 4 frames with the gate and 4 with
+    it forced off give particles equal by identity and views equal bit for
+    bit; gated, the flow grid is untouched and no force is carried. `eng`
+    is left with the gated run's state and timer."""
+    from tendrils_tpu_torch import convert, engine as tengine
+    state, t0 = convert.sim_to_numpy(eng.sim), eng.timer.time
+    runs = []
+    for flow_off in (True, False):
+        eng.sim = convert.sim_from_numpy(state, "cuda")
+        eng.timer.time = t0
+        for _ in range(4):
+            eng.timer.tick()
+            eng.sim = tengine._frame(
+                eng.sim, eng.params(), tengine._f32(eng.timer.time, "cuda"),
+                tengine._f32(eng.timer.dt, "cuda"), eng.config,
+                eng._view_size, targets_live=False,
+                fast_resolve=tengine.fast_resolve_ok(eng.config, eng.state),
+                flow_off=flow_off, host_widths=tengine.host_widths(eng.state))
+        runs.append(eng.sim)
+    a, b = runs
+    if not torch.equal(by_id(a), by_id(b)):
+        fail(f"config 1 contract: particles differ by "
+             f"{(by_id(a) - by_id(b)).abs().max().item():.3e}")
+    if not torch.equal(a.view, b.view):
+        fail("config 1 contract: views differ in "
+             f"{(a.view != b.view).sum().item()} values")
+    if not torch.equal(a.flow.cpu(), torch.as_tensor(state["flow"])) \
+            or a.force is not None:
+        fail("config 1 contract: the gated frames moved the flow grid or "
+             "carried a force")
+    eng.sim = a
+
+
+def agree_config1():
+    """Config 1's frame: a small run (root 64, 720x1280, flowWeight 0) on
+    the card against the same run on the CPU, 3 frames."""
+    cpu, gpu = spawned_pair((720, 1280))
+    for eng in (cpu, gpu):
+        eng.state["flowWeight"] = 0.0
+    for _ in range(3):
+        cpu.frame()
+        gpu.frame()
+    return agree(cpu, gpu, "default-preview, flowWeight 0")
+
+
+def run_config1():
+    """Phase 12: config 1 through the entry points, flowWeight 0: two
+    facade frames and `run_headless` for STEPS steps (resident), then one
+    classic frame; returns the launch counts of that run."""
+    import tendrils_tpu_torch as tt
+    from tendrils_tpu_torch.ops import cuda_lib
+    eng = config1()
+    flow0 = eng.sim.flow.clone()
+    cuda_lib.reset_counts()
+    eng.frame()
+    eng.frame()
+    eng.sim = tt.run_headless(eng.sim, eng.params(), eng.config,
+                              eng._view_size, eng.timer.time, DT, STEPS,
+                              targets_live=False, flow_off=True)
+    eng.timer.time += STEPS * DT
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    check_launches("config 1 resident", 2 + STEPS, CONFIG1_RESIDENT,
+                   launches, dict(cuda_lib.plain_calls))
+    classic(eng)
+    cuda_lib.reset_counts()
+    eng.frame()
+    torch.cuda.synchronize()
+    check_launches("config 1 classic", 1, CONFIG1_CLASSIC,
+                   dict(cuda_lib.launches), dict(cuda_lib.plain_calls))
+    for k, v in cuda_lib.launches.items():
+        launches[k] = launches.get(k, 0) + v
+    if launches.get("bilinear_gather", 0):
+        fail(f"config 1: K5 launched (launches {launches})")
+    if not torch.equal(eng.sim.flow, flow0) or eng.sim.force is not None:
+        fail("config 1: the flow grid moved or a force was carried")
+    alive, texels = check_state(eng.sim, "config 1", drawn="view")
+    flow_off_contract(eng)
+    eng.config = dataclasses.replace(eng.config, resident_stream=True)
+    eng.reseed_derived()
+    flow_off_contract(eng)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.sim = tt.run_headless(eng.sim, eng.params(), eng.config,
+                                  eng._view_size, eng.timer.time, DT, STEPS,
+                                  targets_live=False, flow_off=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        eng.timer.time += STEPS * DT
+    check_state(eng.sim, "config 1 timed", drawn="view")
+    if not torch.equal(eng.sim.flow, flow0):
+        fail("config 1 timed: the flow grid moved")
+    sec = statistics.median(times) / STEPS
+    err = agree_config1()
+    runs = ", ".join(f"{t / STEPS * 1e3:.3f}" for t in times)
+    print(f"[12] config 1 (default-preview at 720x1280, flowWeight 0): 2 "
+          f"frames + {STEPS} headless steps + 1 classic frame, launches "
+          f"{launches}, no plain calls, no K4, K5 or K7; the flow grid "
+          f"frozen bit for bit; {alive} alive, {texels} view texels; 4 "
+          f"frames gated and ungated from one state give the same particles "
+          f"and view bit for bit (classic and resident); "
+          f"{sec * 1e3:.3f} ms/frame, {eng.config.n / sec:.0f} "
+          f"particle-steps/s (median of 3 x {STEPS} steps: {runs} ms/frame); "
+          f"card vs CPU particles max |d| {err:.2e}")
+    return launches
+
+
+def quantile(d, q):
+    """The q-quantile of every value of `d` (sorted; `torch.quantile`
+    refuses tensors past 2^24 values)."""
+    flat = torch.sort(d.flatten())[0]
+    return flat[int(q * (flat.numel() - 1))].item()
+
+
+def bokeh_forms(view):
+    """Bokeh alone on `view` (4K) in both stack forms: each form's max |d|
+    and p99.9 against the same bokeh in float64 on the card, and its
+    device ms (5 calls). The facade's form, the windowed boxes, must stay
+    within the JAX module's cross-form bounds (max 5e-3, p99.9 2e-3), and
+    each form within BOKEH_F32_MAX, which a stack in TF32 or bf16 misses."""
+    from tendrils_tpu_torch.ops import post
+    h, w = view.shape[1:]
+    ref = post.bokeh(view.double(), *SHOW_BOKEH)
+    mats = post.blur_stack_matrices((h, w), (2, 6, 16), device=view.device)
+    rows = {}
+    for form, m in (("boxes", None), ("matmul", mats)):
+        d = (post.bokeh(view, *SHOW_BOKEH, mats=m).double() - ref).abs()
+        ms, call_ms, _ = time_calls(
+            lambda m=m: post.bokeh(view, *SHOW_BOKEH, mats=m), reps=5)
+        rows[form] = (d.max().item(), quantile(d, 0.999), ms, call_ms)
+        del d
+        if rows[form][0] >= BOKEH_F32_MAX:
+            fail(f"bokeh ({form}) against float64: max |d| "
+                 f"{rows[form][0]:.3e}, over {BOKEH_F32_MAX:.0e}")
+    if rows["boxes"][0] >= 5e-3 or rows["boxes"][1] >= 2e-3:
+        fail(f"bokeh (boxes) against float64: max |d| {rows['boxes'][0]:.3e}"
+             f", p99.9 {rows['boxes'][1]:.3e}")
+    return rows
+
+
+def show_frame(eng, i):
+    """Config 5's show frame (`bench.py:352-378`): the audio-style
+    `noiseScale` modulation, a tick, and the io frame with bokeh."""
+    eng.state["noiseScale"] = 2.0 + 0.5 * (i % 3)
+    eng.timer.tick()
+    return eng.step_draw_io(bokeh=SHOW_BOKEH)
+
+
+def run_show_frame(eng, headless_ms):
+    """Phase 13: config 5's show frame uncut on phase 10's engine (merge
+    off): 2 warm frames and 3 timed runs of SEG, the screen `[4, 2160,
+    3840]` and finite; then bokeh alone in both stack forms."""
+    from tendrils_tpu_torch.ops import cuda_lib
+    with_merge(eng, False)
+    cuda_lib.reset_counts()
+    screen = show_frame(eng, 0)
+    show_frame(eng, 1)
+    frames = itertools.count(2)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SEG):
+            screen = show_frame(eng, next(frames))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / SEG)
+    launches = dict(cuda_lib.launches)
+    per = dict(CONFIG3_OFF, bilinear_gather=0)
+    per["pack_g3"] = per.pop("pack")
+    check_launches("16m-live-show show frame", 2 + 3 * SEG, per, launches,
+                   dict(cuda_lib.plain_calls))
+    h, w = eng.config.view_res
+    if tuple(screen.shape) != (4, h, w) or not torch.isfinite(screen).all():
+        fail(f"show frame: screen {tuple(screen.shape)}, finite "
+             f"{torch.isfinite(screen).all().item()}")
+    alive, texels = check_state(eng.sim, "16m-live-show show frame")
+    rows = bokeh_forms(eng.sim.view[0].contiguous())
+    sec = statistics.median(times)
+    print(f"[13] 16m-live-show show frame, step_draw_io(bokeh={SHOW_BOKEH}) "
+          f"every frame: {2 + 3 * SEG} frames, launches {launches}, no plain "
+          f"calls; screen {tuple(screen.shape)} finite; {alive} alive, "
+          f"{texels} flow texels; {sec * 1e3:.3f} ms/frame (3 x {SEG}: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) against "
+          f"{headless_ms:.3f} headless (phase 10, merge off)")
+    for form, (mx, p999, ms, call_ms) in rows.items():
+        print(f"  bokeh alone at {h}x{w}, {form}"
+              f"{' (the facade form)' if form == 'boxes' else ''}: against "
+              f"float64 max |d| {mx:.3e}, p99.9 {p999:.3e}; device "
+              f"{ms:.4f} ms, call {call_ms:.4f} ms")
+    return launches
+
+
+def lap(laps, name, fn, *args):
+    """`fn(*args)`, its wall seconds kept in `laps[name]`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    laps[name] = time.perf_counter() - t0
+    return out
 
 
 def main():
     t_start = time.perf_counter()
+    laps = {}
     try:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2144,6 +2521,7 @@ def main():
     print(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {'cached' if built is None else f'{built:.1f} s'}; "
           f"{release.strip().splitlines()[-1]})")
+    laps["1-2 start, build"] = time.perf_counter() - t_start
 
     print("[3] kernels vs plain versions at config-2 shapes:")
     for kind in ("write", "read"):
@@ -2151,42 +2529,52 @@ def main():
         print(f"  cold timings' L2 {kind} flush: {ms:.4f} device ms alone, "
               "left out by name (" + "; ".join(
                   k.split("(")[0][-60:] for k in names) + ")")
-    checks = check_config2_kernels()
+    checks = lap(laps, "3 config 2", check_config2_kernels)
     print("[3] kernels vs plain versions at config-4 shapes:")
-    checks.update(check_config4_kernels())
+    checks.update(lap(laps, "3 config 4", check_config4_kernels))
     print("[3] the K1/K2 variants with p0 and rgba8 streams, K7 and K12:")
-    checks.update(check_slice3_kernels())
+    checks.update(lap(laps, "3 variants", check_slice3_kernels))
     print("[3] K2 on real and long-segment streams, K7 on a real classic "
           "frame's and path B's:")
-    check_splat_streams()
-    check_k7_real_frame()
+    lap(laps, "3 K2 streams", check_splat_streams)
+    lap(laps, "3 K7 frames", check_k7_real_frame)
     print("[3] K5 at config-3 and config-5 shapes:")
-    check_k5_configs()
+    lap(laps, "3 K5", check_k5_configs)
     print("[3] the merge reorder (K10, K11) and K2 on real frames' inputs, "
           "and K1 in gather modes 3 and 2 at config-3 shapes:")
-    checks.update(check_merge_kernels())
+    checks.update(lap(laps, "3 merge", check_merge_kernels))
+    print("[3] K2 and K3 view-only (flow_off) on config-1 and config-2 "
+          "streams:")
+    checks.update(lap(laps, "3 view-only", check_view_only_kernels))
 
-    eng, launches2 = run_config2()
-    names = replay(eng, eng.frame, "1m-flow")
+    eng, launches2 = lap(laps, "4 config 2", run_config2)
+    names = lap(laps, "5 replay", replay, eng, eng.frame, "1m-flow")
     print(f"[5] 1m-flow frame replayed: {', '.join(names)} equal bit for "
           "bit")
     del eng
-    replay_io()
-    launches4 = run_config4()
-    launches_a = run_path_a()
-    launches_bc = run_paths_b_c()
-    launches_m2 = run_merge_config2()
-    eng3, launches_m3 = run_merge_config3()
-    replay_respawn(eng3)
-    launches_big = run_config5_and_mode2(eng3)
+    lap(laps, "5 replay io", replay_io)
+    launches4 = lap(laps, "6 config 4", run_config4)
+    launches_a = lap(laps, "7 path A", run_path_a)
+    launches_bc = lap(laps, "8 paths B, C", run_paths_b_c)
+    launches_m2 = lap(laps, "9 merge config 2", run_merge_config2)
+    eng3, launches_m3 = lap(laps, "9 merge config 3", run_merge_config3)
+    lap(laps, "5 replay respawn", replay_respawn, eng3)
+    launches_big, eng5, headless5 = lap(laps, "10 config 5",
+                                        run_config5_and_mode2, eng3)
+    del eng3
+    launches_1 = lap(laps, "12 config 1", run_config1)
+    launches_show = lap(laps, "13 show frame", run_show_frame, eng5,
+                        headless5)
+    del eng5
     if "jax" in sys.modules:
         fail("the port imported jax")
 
     runs = (launches2, launches4, launches_a, launches_bc, launches_m2,
-            launches_m3, launches_big)
-    print(f"[11] every phase passed in {time.perf_counter() - t_start:.1f} "
+            launches_m3, launches_big, launches_1, launches_show)
+    print(f"[14] every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s; {TRACES['traces']} profiler traces, "
-          f"{TRACES['traced again']} of them taken again")
+          f"{TRACES['traced again']} of them taken again; seconds by "
+          f"phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     print(card)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

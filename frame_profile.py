@@ -1,7 +1,7 @@
 """Where the time of a frame goes, on one GPU.
 
     python3 frame_profile.py [--model M] [--frames 20] [--classic]
-                             [--color-maps] [--paused] [--merge]
+                             [--color-maps] [--paused] [--merge] [--show]
     python3 frame_profile.py --gathers
     python3 frame_profile.py --k9-k11
 
@@ -9,10 +9,15 @@ Drives `models.build(M)`: "optical-flow-driven" (config 4, the default)
 through `step_draw_io` with the feed of `chip_smoke.py` (`feeds.IoFeed`:
 a 480x640 u8 camera with a moving bar, 4 pointer paths trimmed to the
 last 1/flowDecay ms as the demo trims them; with `--color-maps` also the
-demo's three colour maps), or headless through `frame()`: "1m-flow"
-(config 2), "4m-respawn-stress" (config 3, a ball respawn before every
-10th frame, the cadence of `bench.py`'s config 3) and "16m-live-show"
-(config 5 without its post stack). `--classic` sets `resident_stream=False`
+demo's three colour maps), or headless through `frame()`:
+"default-preview" (config 1 as `bench.py:180-186` builds it:
+`chip_smoke.config1`, 720x1280, `flowWeight = 0`, so K2 and K3 run
+view-only), "1m-flow" (config 2), "4m-respawn-stress" (config 3, a ball
+respawn before every 10th frame, the cadence of `bench.py`'s config 3) and
+"16m-live-show" (config 5). `--show` runs config 5's show frame instead
+(`chip_smoke.show_frame`: `step_draw_io(bokeh=(3.0, 40.0))` with the
+`noiseScale` modulation), the bokeh a stage of its own in reading 3.
+`--classic` sets `resident_stream=False`
 (the classic carried-force frame); `--paused` pauses the timer after the
 warm-up frames (config 4: paused io frames; the others: `frame()` is the
 paused draw); `--merge` sets `merge_reorder=True` (the resident frame's
@@ -108,6 +113,8 @@ def _stage_timers(acc):
          "force gather K8 or K7 (+ decay, un-sort)"),
         (feeds, "image_to_grid", "camera grid as a colour map (host)"),
         (post, "blend", "colour-map blend"),
+        (post, "vignette_blur", "vignette blur (post stage)"),
+        (post, "bokeh", "bokeh (post stage)"),
         (sample, "sample_uv", "colour-map lookup per particle"),
         (reorder_cuda, "merge_reorder",
          NESTED + "merge reorder (K10 + C sort + K11)"),
@@ -301,13 +308,15 @@ def profile_k9_k11():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="optical-flow-driven",
-                    choices=("optical-flow-driven", "1m-flow",
-                             "4m-respawn-stress", "16m-live-show"))
+                    choices=("optical-flow-driven", "default-preview",
+                             "1m-flow", "4m-respawn-stress",
+                             "16m-live-show"))
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--classic", action="store_true")
     ap.add_argument("--color-maps", action="store_true")
     ap.add_argument("--paused", action="store_true")
     ap.add_argument("--merge", action="store_true")
+    ap.add_argument("--show", action="store_true")
     ap.add_argument("--gathers", action="store_true")
     ap.add_argument("--k9-k11", action="store_true")
     args = ap.parse_args()
@@ -317,10 +326,12 @@ def main():
         return profile_gathers()
     if args.k9_k11:
         return profile_k9_k11()
+    import chip_smoke
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.feeds import IoFeed
     from tendrils_tpu_torch.ops import cuda_lib, spawn
-    eng = models.build(args.model)
+    eng = chip_smoke.config1() if args.model == "default-preview" \
+        else models.build(args.model)
     eng.config = dataclasses.replace(eng.config,
                                      resident_stream=not args.classic,
                                      merge_reorder=args.merge)
@@ -333,8 +344,13 @@ def main():
                                                      0.01))
         eng.frame()
 
-    step = IoFeed(eng, color_maps=args.color_maps).frame \
-        if args.model == "optical-flow-driven" else headless
+    if args.show:
+        def step(i):
+            chip_smoke.show_frame(eng, i)
+    elif args.model == "optical-flow-driven":
+        step = IoFeed(eng, color_maps=args.color_maps).frame
+    else:
+        step = headless
     i = 0
 
     def frames(k):
@@ -352,7 +368,8 @@ def main():
         frames(args.frames)
         walls.append((time.perf_counter() - t0) / args.frames * 1e3)
     print(f"{args.model} (classic {args.classic}, colour maps "
-          f"{args.color_maps}, paused {args.paused}, merge {args.merge}) on "
+          f"{args.color_maps}, paused {args.paused}, merge {args.merge}, "
+          f"show frame {args.show}) on "
           f"{torch.cuda.get_device_name(0)}")
     print(f"[1] wall: {statistics.median(walls):.3f} ms/frame (median of 3 "
           f"x {args.frames}: {', '.join(f'{w:.3f}' for w in walls)})")

@@ -15,11 +15,40 @@
 // reads all of its pixel before writing it, so the kernel may run in place
 // (new_flow == flow, new_view == view), as the TPU kernel does through
 // input_output_aliases; the pointers are therefore not __restrict__.
+//
+// The view-only variant (`resolve_view_kernel`, flow_off: `flowWeight ==
+// 0`) reads the 6 planes of K2's view-only accumulator and the old view and
+// writes the new view: no flow, no eff (the engine passes the flow grid
+// through untouched). The TPU kernel takes the view in its flow slot
+// (draw_pallas.py:1302-1313), a calling detail of Pallas; here it has its
+// own entry. Bound: 14 floats a pixel (6 + 4 read, 4 written).
 #include "common.cuh"
 
 namespace {
 
 using namespace tt;
+
+constexpr int N_VIEW = N_CHAN - N_FLOW;
+
+// The view's blend of pixel i over the cleared + faded previous view: `av`,
+// its six accumulated channels (r.a, g.a, b.a, a.a, a, log(1-a)), into nv.
+__device__ __forceinline__ void blend_view(const float* __restrict__ rscal,
+                                           const float* av, const float* view,
+                                           int hw, int i, float* nv) {
+  const float clear = rscal[3];
+  const float sv = rscal[9];
+  const float eps = rscal[10];
+  const float fa = rscal[7];
+  const float wsum_v = av[4] * sv;
+  const float t_v = expf(av[5] * sv);
+  const float gain_v = (1.0f - t_v) / fmaxf(wsum_v, eps);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float v0 = view[k * hw + i] * (1.0f - clear);
+    v0 = rscal[4 + k] * fa + v0 * (1.0f - fa);
+    nv[k] = v0 * t_v + (av[k] * sv) * gain_v;
+  }
+}
 
 // rscal (the JAX resolve's scal): [0] time, [1] read_time, [2] flowDecay,
 // [3] autoClearView, [4..7] fadeColor * autoFade, [8] flow width scale,
@@ -43,9 +72,7 @@ __global__ void resolve_kernel(const float* __restrict__ rscal,
   const float time = rscal[0];
   const float read_time = rscal[1];
   const float fdecay = rscal[2];
-  const float clear = rscal[3];
   const float sf = rscal[8];
-  const float sv = rscal[9];
   const float eps = rscal[10];
 
   // Flow (splat.composite_over semantics; stamp num = time * wsum).
@@ -60,17 +87,8 @@ __global__ void resolve_kernel(const float* __restrict__ rscal,
   }
 
   // View over the cleared + faded previous view.
-  const float fa = rscal[7];
-  const float wsum_v = ac[N_FLOW + 4] * sv;
-  const float t_v = expf(ac[N_FLOW + 5] * sv);
-  const float gain_v = (1.0f - t_v) / fmaxf(wsum_v, eps);
   float nv[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float v0 = view[k * hw + i] * (1.0f - clear);
-    v0 = rscal[4 + k] * fa + v0 * (1.0f - fa);
-    nv[k] = v0 * t_v + (ac[N_FLOW + k] * sv) * gain_v;
-  }
+  blend_view(rscal, ac + N_FLOW, view, hw, i, nv);
 
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -84,6 +102,27 @@ __global__ void resolve_kernel(const float* __restrict__ rscal,
   }
 }
 
+// The view-only resolve: `acc` holds the view's N_VIEW planes alone.
+__global__ void resolve_view_kernel(const float* __restrict__ rscal,
+                                    const float* __restrict__ acc,
+                                    const float* view, int h, int w, int hp,
+                                    int wp, float* new_view) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int hw = h * w;
+  if (i >= hw) return;
+  const int y = i / w;
+  const int x = i - y * w;
+  const long long plane = (long long)hp * wp;
+  const float* a = acc + (long long)(PAD_LO_H + y) * wp + (PAD_LO_W + x);
+  float av[N_VIEW];
+#pragma unroll
+  for (int k = 0; k < N_VIEW; ++k) av[k] = a[k * plane];
+  float nv[4];
+  blend_view(rscal, av, view, hw, i, nv);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) new_view[k * hw + i] = nv[k];
+}
+
 }  // namespace
 
 extern "C" int tt_resolve(const float* rscal, const float* accum,
@@ -94,6 +133,19 @@ extern "C" int tt_resolve(const float* rscal, const float* accum,
     resolve_kernel<<<blocks_for((long long)h * w), THREADS, 0,
                      (cudaStream_t)stream>>>(rscal, accum, flow, view, h, w,
                                              hp, wp, new_flow, new_view, eff);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The view-only variant: `accum` f32 [N_VIEW, hp, wp], `view` and
+// `new_view` f32 [4, h, w].
+extern "C" int tt_resolve_view(const float* rscal, const float* accum,
+                               const float* view, int h, int w, int hp,
+                               int wp, float* new_view, void* stream) {
+  if (h * w > 0) {
+    resolve_view_kernel<<<blocks_for((long long)h * w), THREADS, 0,
+                          (cudaStream_t)stream>>>(rscal, accum, view, h, w,
+                                                  hp, wp, new_view);
   }
   return (int)cudaGetLastError();
 }

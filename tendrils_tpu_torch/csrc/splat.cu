@@ -1,7 +1,14 @@
 // K2 splat — replaces tendrils_tpu/ops/draw_pallas.py:_kernel (launched
-// from _bin_and_splat), with the flow channels on, in every variant the
-// engine runs: the p0 word stream and the rgba8 colour stream are each
-// optional (null pointers), as the TPU kernel's derive_p0 and scalar_color.
+// from _bin_and_splat), in every variant the engine runs: the p0 word
+// stream and the rgba8 colour stream are each optional (null pointers), as
+// the TPU kernel's derive_p0 and scalar_color, and the flow channels are
+// dropped under flow_off (`flowWeight == 0`), a launch parameter: `ch0`, the
+// global channel of the scratch's first plane, 0 (all 11 planes, both
+// channel groups) or N_FLOW (the view's 6 planes alone: one channel group
+// in the tile pass, no flow deposits among the strays, 6 planes zeroed and
+// converted). A plane keeps its global channel's fixed-point step, so the
+// view planes of a view-only launch are bit-equal to planes N_FLOW.. of the
+// 11-channel launch on the same stream.
 //
 // Each (sorted segment, sample) is re-derived from the packed words exactly
 // as the TPU kernel does (`sample_geo`, `group_channels`): p0 from its word
@@ -104,7 +111,14 @@ struct Params {
   const int* rgbaw;
   int n, samples, h, w, hp, wp, tiles_x, bits;
   float pscale;
+  int ch0;  // global channel of the scratch's first plane: 0 or N_FLOW
 };
+
+// The channel groups a launch deposits (the tile pass's gridDim.y): the
+// flow's and the view's, or the view's alone.
+__host__ __device__ __forceinline__ int channel_groups(int ch0) {
+  return ch0 == 0 ? 2 : 1;
+}
 
 // The most one add of global channel k can weigh, from `group_channels`
 // (the box weights wr <= 1 / width <= 1 and wc <= 1 only shrink it): flow
@@ -307,7 +321,7 @@ __device__ __forceinline__ int tile_start(const int* __restrict__ keys, int n,
 
 __global__ void splat_plan_kernel(const int* __restrict__ keys, int n,
                                   int bits, int tiles_x, int hp, int wp,
-                                  int chunk,
+                                  int chunk, int ch0,
                                   int* __restrict__ info,
                                   int* __restrict__ queue, int queue_cap,
                                   long long* __restrict__ fix) {
@@ -356,7 +370,8 @@ __global__ void splat_plan_kernel(const int* __restrict__ keys, int n,
   const long long plane = (long long)hp * wp;
   long long* tile0 = fix + (long long)(ty * TILE_H) * wp + tx * TILE_W;
   constexpr int Q = TILE_W / 2;  // 16-byte stores of two texels
-  for (int k = threadIdx.x; k < N_CHAN * TILE_H * Q; k += blockDim.x) {
+  for (int k = threadIdx.x; k < (N_CHAN - ch0) * TILE_H * Q;
+       k += blockDim.x) {
     const int c2 = k % Q;
     const int r = (k / Q) % TILE_H;
     const int ch = k / (Q * TILE_H);
@@ -445,7 +460,8 @@ __device__ __forceinline__ void tile_column(
 }
 
 // One tile part's channel group NCH (N_FLOW: the flow's, N_VIEW: the
-// view's), into `fix` at the group's first plane.
+// view's), into `fix` at the group's first plane. Its steps are those of
+// the group's global channels, whatever plane the group starts at.
 template <int NCH>
 __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
                                           const int* __restrict__ info,
@@ -565,7 +581,7 @@ __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
 // Blocks [0, queue_cap) take the queued parts of split tiles (first, so
 // the heavy work starts early; the unused ones exit), blocks [queue_cap,
 // queue_cap + tiles) the tiles that are not split. blockIdx.y: the
-// channel group (0 flow, 1 view).
+// channel group (0 flow, 1 view; the view alone when ch0 = N_FLOW).
 __global__ void __launch_bounds__(TILE_THREADS, 1)
     splat_tile_kernel(Params P, const int* __restrict__ info,
                       const int* __restrict__ queue, int queue_cap,
@@ -581,11 +597,13 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
   } else if (info[INFO * t + 6] > 1) {
     return;
   }
-  if (blockIdx.y == 0) {
+  // The launch's groups are the last channel_groups(ch0) of (flow, view).
+  const int group = (int)blockIdx.y + 2 - channel_groups(P.ch0);
+  if (group == 0) {
     tile_body<N_FLOW>(P, t, part, info, sm, fix);
   } else {
     tile_body<N_VIEW>(P, t, part, info, sm,
-                      fix + N_FLOW * (long long)P.hp * P.wp);
+                      fix + (N_FLOW - P.ch0) * (long long)P.hp * P.wp);
   }
 }
 
@@ -637,7 +655,7 @@ __global__ void splat_stray_kernel(Params P, int* __restrict__ strays,
   if (fits_key_tile(P, P.keys[i], g.gx, g.gy, half_widest(P.scal))) return;
   atomicAdd(strays, 1);
   float ch[N_VIEW], scale[N_VIEW];
-  if (group_channels<N_FLOW>(P, i, g, ch)) {
+  if (P.ch0 == 0 && group_channels<N_FLOW>(P, i, g, ch)) {
     const float width = group_width<N_FLOW>(P.scal);
     for (int k = 0; k < N_FLOW; ++k) {
       scale[k] = pow2f(channel_shift(P.scal, k, P.n, P.samples));
@@ -650,22 +668,23 @@ __global__ void splat_stray_kernel(Params P, int* __restrict__ strays,
     for (int k = 0; k < N_VIEW; ++k) {
       scale[k] = pow2f(channel_shift(P.scal, N_FLOW + k, P.n, P.samples));
     }
-    deposit<N_VIEW>(fix + N_FLOW * (long long)P.hp * P.wp, P.hp, P.wp, ch,
-                    scale, g.gx, g.gy, width * 0.5f, 1.0f / width);
+    deposit<N_VIEW>(fix + (N_FLOW - P.ch0) * (long long)P.hp * P.wp, P.hp,
+                    P.wp, ch, scale, g.gx, g.gy, width * 0.5f, 1.0f / width);
   }
 }
 
 // --- pass 4: the conversion --------------------------------------------------
 
-// Thread i converts texels 4i..4i+3 of the flat [N_CHAN, hp, wp] scratch
-// (a plane holds plane4 groups of 4).
+// Thread i converts texels 4i..4i+3 of the flat [N_CHAN - ch0, hp, wp]
+// scratch (a plane holds plane4 groups of 4; plane p is global channel
+// ch0 + p).
 __global__ void splat_convert_kernel(const float* __restrict__ scal, int n,
-                                     int samples, int plane4,
+                                     int samples, int plane4, int ch0,
                                      const long long* __restrict__ fix,
                                      float* __restrict__ acc) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long long)N_CHAN * plane4) return;
-  const float inv = pow2f(-channel_shift(scal, (int)(i / plane4), n,
+  if (i >= (long long)(N_CHAN - ch0) * plane4) return;
+  const float inv = pow2f(-channel_shift(scal, ch0 + (int)(i / plane4), n,
                                           samples));
   const longlong2* src = reinterpret_cast<const longlong2*>(fix) + 2 * i;
   const longlong2 a = __ldcs(src);
@@ -678,26 +697,27 @@ __global__ void splat_convert_kernel(const float* __restrict__ scal, int n,
 Params make_params(const float* scal, const int* keys, const int* p1,
                    const int* vl, const int* p0, const int* rgba, int n,
                    int samples, int h, int w, int hp, int wp, int bits,
-                   float pscale) {
+                   float pscale, int ch0) {
   return Params{scal, keys, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
-                wp / TILE_W, bits, pscale};
+                wp / TILE_W, bits, pscale, ch0};
 }
 
 }  // namespace
 
 // Pass 1. `keys`: i32[n], tile-sorted, `tile << bits | id`; `info`:
 // i32[INFO x tiles]; `queue`: i32[QUEUE_HEAD + 2 x queue_cap]; `chunk`:
-// the most weighted rows a part takes; `fix`: the int64 [N_CHAN, hp, wp]
-// scratch.
+// the most weighted rows a part takes; `ch0`: the global channel of the
+// scratch's first plane (0, or N_FLOW under flow_off); `fix`: the int64
+// [N_CHAN - ch0, hp, wp] scratch.
 extern "C" int tt_splat_plan(const int* keys, int n, int bits, int hp, int wp,
-                             int chunk, int* info, int* queue, int queue_cap,
-                             long long* fix, void* stream) {
+                             int chunk, int ch0, int* info, int* queue,
+                             int queue_cap, long long* fix, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   cudaMemsetAsync(queue, 0, QUEUE_HEAD * sizeof(int), s);
   const int tiles = (hp / TILE_H) * (wp / TILE_W);
   splat_plan_kernel<<<tiles, PLAN_THREADS, 0, s>>>(
-      keys, n, bits, wp / TILE_W, hp, wp, chunk, info, queue, queue_cap,
-      fix);
+      keys, n, bits, wp / TILE_W, hp, wp, chunk, ch0, info, queue,
+      queue_cap, fix);
   return (int)cudaGetLastError();
 }
 
@@ -706,11 +726,12 @@ extern "C" int tt_splat_tiles(const float* scal, const int* keys,
                               const int* p1, const int* vl, const int* p0,
                               const int* rgba, int n, int samples, int h,
                               int w, int hp, int wp, int bits, float pscale,
-                              const int* info, const int* queue,
+                              int ch0, const int* info, const int* queue,
                               int queue_cap, long long* fix, void* stream) {
   const Params P = make_params(scal, keys, p1, vl, p0, rgba, n, samples, h,
-                               w, hp, wp, bits, pscale);
-  const dim3 grid(queue_cap + (hp / TILE_H) * (wp / TILE_W), 2);
+                               w, hp, wp, bits, pscale, ch0);
+  const dim3 grid(queue_cap + (hp / TILE_H) * (wp / TILE_W),
+                  channel_groups(ch0));
   const cudaStream_t s = (cudaStream_t)stream;
   cudaFuncSetAttribute(splat_tile_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -726,29 +747,30 @@ extern "C" int tt_splat_strays(const float* scal, const int* keys,
                                const int* p1, const int* vl, const int* p0,
                                const int* rgba, int n, int samples, int h,
                                int w, int hp, int wp, int bits, float pscale,
-                               int* queue, long long* fix, void* stream) {
+                               int ch0, int* queue, long long* fix,
+                               void* stream) {
   const long long items = (long long)n * samples;
   if (items > 0) {
     splat_stray_kernel<<<blocks_for(items), THREADS, 0,
                          (cudaStream_t)stream>>>(
         make_params(scal, keys, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
-                    bits, pscale),
+                    bits, pscale, ch0),
         queue + 1, fix);
   }
   return (int)cudaGetLastError();
 }
 
-// Pass 4, after pass 3 on the same stream: `accum`, f32 [N_CHAN, hp, wp],
-// from the scratch (wp is a multiple of TILE_W, so a plane holds whole
+// Pass 4, after pass 3 on the same stream: `accum`, f32 [N_CHAN - ch0, hp,
+// wp], from the scratch (wp is a multiple of TILE_W, so a plane holds whole
 // groups of 4 texels).
 extern "C" int tt_splat_convert(const float* scal, int n, int samples,
-                                int hp, int wp, const long long* fix,
+                                int hp, int wp, int ch0, const long long* fix,
                                 float* accum, void* stream) {
   const int plane4 = hp * wp / 4;
-  const long long groups = (long long)N_CHAN * plane4;
+  const long long groups = (long long)(N_CHAN - ch0) * plane4;
   splat_convert_kernel<<<(int)((groups + CONVERT_THREADS - 1) /
                                CONVERT_THREADS),
                          CONVERT_THREADS, 0, (cudaStream_t)stream>>>(
-      scal, n, samples, plane4, fix, accum);
+      scal, n, samples, plane4, ch0, fix, accum);
   return (int)cudaGetLastError();
 }

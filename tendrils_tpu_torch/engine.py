@@ -1,8 +1,7 @@
 """The Tendrils engine — orchestration of step / draw / spawn.
 
 The port of `tendrils_tpu/engine.py` for the fused draw (`EngineConfig`
-defaults with `flow_levels=1`, `flow_res=None`, `flowWeight != 0`). Per
-frame:
+defaults with `flow_levels=1`, `flow_res=None`). Per frame:
 
     step_sim   logic step (plain tensor code); the flow force comes carried
                from the previous frame, or is gathered in the step (K5);
@@ -26,7 +25,14 @@ colour maps before the step and edits the flow after the draw — pointer
 flow lines (`_inject_flow`, the point splat K9) and the camera's optical
 flow (`ops.optical_flow`) — so its draw only reassembles the state (K6),
 and the next force is gathered afterwards from the final flow
-(`force_from_aux`, K8 or K7).
+(`force_from_aux`, K8 or K7). Its post stage (`ops/post.py`: the vignette
+blur, then the bokeh) returns the screen.
+
+With `flowWeight == 0` (`flow_force_unused`, BASELINE config 1) the flow
+term of the step is exactly zero: the step gathers nothing, no frame
+carries a force, and the kernel draw prunes the flow channels (K2 and K3
+view-only) and passes the flow grid through untouched, as the JAX package
+does; a draw whose flow is edited keeps all 11 channels.
 
 The ordering invariant of the reference holds: the step reads the flow
 BEFORE this frame's deposit (`src/index.js:297-298`). Every other frame
@@ -211,14 +217,20 @@ def step_sim(sim: state_mod.SimState, params, time, dt, cfg: EngineConfig,
 
     Uses the carried force when the previous frame left one, else decays
     the flow grid once and gathers its 2 velocity channels (K5) at the
-    particles' screen positions."""
-    if flow_off:
-        raise not_ported("flow_off (flowWeight == 0)", 7)
+    particles' screen positions. `flow_off` (host-known `flowWeight == 0`,
+    `flow_force_unused`): the flow term is exactly zero, the parameter
+    variance being multiplicative (ref `src/logic.frag:41-43`), so nothing
+    is decayed or gathered."""
     if cfg.gather_backend != "kernel" or cfg.flow_levels != 1:
         raise not_ported("the xla gather backend and flow pyramids", 7)
     uv, index01, _ = state_mod.particle_coords_from_idx(sim.idx,
                                                         cfg.root_num)
-    if sim.force is not None:
+    if flow_off:
+
+        def flow_force_fn(pos_screen):
+            del pos_screen
+            return 0.0
+    elif sim.force is not None:
         # Carried force: gathered at the end of the previous frame from its
         # final flow at these exact positions. Consumed once.
         force = sim.force
@@ -271,7 +283,8 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     emits the flow decayed to `read_time`. Without it the view is cleared
     and faded here and the XLA tail resolves; `host_widths` (port only:
     the host's `(flowWidth, lineWidth)`) decides its blur without reading
-    the device.
+    the device. `flow_off` prunes the flow channels where `fused_draw`
+    admits it (K3, no decayed flow wanted): the flow grid passes through.
 
     A resident draw of a sim that carries `sort_key` restores the row order
     by the merge reorder and returns the new carry on the sim; where the
@@ -286,8 +299,6 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     if not (cfg.fused_draw and cfg.splat_backend == "kernel"
             and cfg.flow_shape == cfg.view_res):
         raise not_ported("the generic (xla) draw", 4)
-    if flow_off:
-        raise not_ported("flow_off (flowWeight == 0)", 7)
     resident = resident and want_aux
     if want_force and not resident:
         raise ValueError("want_force requires the resident draw "
@@ -346,7 +357,8 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
         view_size=view_size if resident else None,
         mapped_scalar=mapped_scalar,
         resolve="kernel" if fast_resolve else "xla", read_time=read_time,
-        want_eff=k3_eff, reorder=reorder, host_widths=host_widths)
+        want_eff=k3_eff, flow_off=flow_off, reorder=reorder,
+        host_widths=host_widths)
     carry = rest.pop() if reorder is not None else None
     eff = rest[0] if rest else None
     view = torch.cat([view0[None], sim.view[1:]])
@@ -406,19 +418,26 @@ def _frame(sim, params, time, dt, cfg, view_size, targets_live=True,
     """One frame: step + draw, the next force carried on `sim`: gathered
     in the resident draw (K4), or by `force_from_aux` after a classic draw
     (K7 from K3's decayed flow). Without the carried force the step
-    gathers its own (K5) and the draw gathers none."""
-    if flow_off:
-        raise not_ported("flow_off (flowWeight == 0)", 7)
-    sim = step_sim(sim, params, time, dt, cfg, view_size)
+    gathers its own (K5) and the draw gathers none. With `flow_off` no
+    force is gathered at all: the resident draw rebuilds the state alone
+    (K6), the classic one is a plain draw (no ids, no K7)."""
+    sim = step_sim(sim, params, time, dt, cfg, view_size, flow_off=flow_off)
     if not carry_enabled(cfg):
         return draw_sim(sim, params, time, cfg, view_size, stepped=True,
-                        fast_resolve=fast_resolve, host_widths=host_widths)
+                        fast_resolve=fast_resolve, flow_off=flow_off,
+                        host_widths=host_widths)
     resident = resident_enabled(cfg)
+    if flow_off and not resident:
+        # Nothing consumes the flow force: no aux stream, no gather.
+        return draw_sim(sim, params, time, cfg, view_size, stepped=True,
+                        fast_resolve=fast_resolve, flow_off=True,
+                        host_widths=host_widths)
     out = draw_sim(sim, params, time, cfg, view_size, want_aux=True,
                    resident=resident, targets_live=targets_live,
                    stepped=True, fast_resolve=fast_resolve,
-                   read_time=time + dt, want_eff=fast_resolve,
-                   want_force=resident, host_widths=host_widths)
+                   read_time=time + dt, want_eff=fast_resolve and not flow_off,
+                   want_force=resident and not flow_off, flow_off=flow_off,
+                   host_widths=host_widths)
     if resident:
         return out[0]
     sim, aux, *eff = out
@@ -469,17 +488,18 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
     (gather mode 0, the XLA tail) and every input still land, and no force
     is carried.
 
+    `flow_off` (`flowWeight == 0`): no force is gathered; the draw prunes
+    the flow channels only when neither input edits the flow.
+
     `cm`: colour-map tensors `f32[4, h, w]`, resized to the largest and
     blended with `cm_alphas` (`post.blend`, ref `demo.main.js:1070-1079`);
     `seg`: `(p0_pix, p1_pix, vel, width)` tensors; `of`: `(current, last,
     offset, lambda, speed)`, frames as device tensors, the uniforms host
-    numbers. Returns `(sim', None)` (the screen of the post stack is not
-    ported)."""
-    if blur is not None or bokeh is not None:
-        raise not_ported("the post stack (blur, bokeh)", 9)
-    if flow_off:
-        raise not_ported("flow_off (flowWeight == 0)", 7)
-    carry = carry_enabled(cfg) and stepping
+    numbers; `blur`: `(radius, limit)` and `bokeh`: `(radius, amount)`,
+    the post stage's vignette blur and bokeh (bokeh after the blur when
+    both are set; the blur stack runs its windowed boxes). Returns
+    `(sim', screen)`, the screen None without a post stage."""
+    carry = carry_enabled(cfg) and stepping and not flow_off
     if not carry and sim.force is not None:
         sim = dataclasses.replace(sim, force=None)
     if cm is not None:
@@ -488,25 +508,31 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
             [_resize_payload(g, target[1:]) for g in cm], cm_alphas))
     resident = resident_enabled(cfg) and stepping
     edits = seg is not None or of is not None
+    want_force = resident and not edits and not flow_off
     aux = eff = None
     if not stepping:
         sim = draw_sim(sim, params, time, cfg, view_size,
                        host_widths=host_widths)
     else:
-        sim = step_sim(sim, params, time, dt, cfg, view_size)
-        if carry:
+        sim = step_sim(sim, params, time, dt, cfg, view_size,
+                       flow_off=flow_off)
+        if carry or (resident and flow_off):
+            # (resident + flow_off: no force, but the state still rides
+            # the draw's sort, so the rows stay tile-ordered.)
             sim, aux, *eff = draw_sim(
                 sim, params, time, cfg, view_size, want_aux=True,
                 resident=resident, targets_live=targets_live, stepped=True,
                 fast_resolve=fast_resolve, read_time=time + dt,
-                want_eff=fast_resolve and not edits,
-                want_force=resident and not edits, host_widths=host_widths)
+                want_eff=fast_resolve and not edits and not flow_off,
+                want_force=want_force, flow_off=flow_off and not edits,
+                host_widths=host_widths)
             eff = eff[0] if eff else None
-            if resident and not edits:
-                aux = None  # the draw set sim.force (K4)
+            if want_force or flow_off:
+                aux = None  # the draw set sim.force (K4), or none is read
         else:
             sim = draw_sim(sim, params, time, cfg, view_size, stepped=True,
                            fast_resolve=fast_resolve,
+                           flow_off=flow_off and not edits,
                            host_widths=host_widths)
     if seg is not None:
         p0, p1, vel, width = seg
@@ -525,7 +551,13 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
         sim = dataclasses.replace(sim, force=force_from_aux(
             sim.flow, aux, params, time + dt, cfg, unsort=not resident,
             eff=eff))
-    return sim, None
+    screen = None
+    if blur is not None:
+        screen = post_ops.vignette_blur(sim.view[0], *blur)
+    if bokeh is not None:
+        screen = post_ops.bokeh(sim.view[0] if screen is None else screen,
+                                *bokeh)
+    return sim, screen
 
 
 def _f32(v, device):
@@ -539,14 +571,13 @@ def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
                  targets_live=True, fast_resolve=None, flow_off=False):
     """Fixed-step headless run of `steps` frames at times t0 + dt*(i + 1)
     (`_frame`). With the carried force it is seeded once by a gather at the
-    start (K5); without it each step gathers its own. The merge-reorder
-    carry is seeded when the merge is enabled and stripped when it is not.
-    Returns the final state."""
-    if flow_off:
-        raise not_ported("flow_off (flowWeight == 0)", 7)
+    start (K5); without it each step gathers its own; with `flow_off`
+    (`flowWeight == 0`) nothing is gathered. The merge-reorder carry is
+    seeded when the merge is enabled and stripped when it is not. Returns
+    the final state."""
     device = sim.particles.device
     t0, dt = _f32(t0, device), _f32(dt, device)
-    carry = carry_enabled(cfg)
+    carry = carry_enabled(cfg) and not flow_off
     if carry and sim.force is None:
         sim = dataclasses.replace(
             sim, force=initial_force(sim, params, cfg, view_size, t0 + dt))
@@ -563,7 +594,8 @@ def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
     for i in range(steps):
         sim = _frame(sim, params, t0 + dt * float(i + 1), dt, cfg,
                      view_size, targets_live=targets_live,
-                     fast_resolve=fast_resolve, host_widths=widths)
+                     fast_resolve=fast_resolve, flow_off=flow_off,
+                     host_widths=widths)
     return sim
 
 
@@ -821,10 +853,12 @@ class Tendrils:
         largest. `segments`: `(p0_pix, p1_pix, vel, width_px)` pointer
         ribbons (`flow_line.FlowLines.segments`); `of_frames`: `(current,
         last)` frames (`media.OpticalFlow.device_buffers`, u8 or f32) with
-        `of_uniforms` (offset / lambda / speed, host numbers). While the
-        timer is paused only the step is skipped. The blur and bokeh post
-        stack is not ported yet (it raises). Returns None (no post
-        stage)."""
+        `of_uniforms` (offset / lambda / speed, host numbers); `blur`:
+        `(radius, limit)`, the demo's vignette blur; `bokeh`: `(radius,
+        amount)`, the bokeh screen pass (`src/screen/bokeh.frag`), after
+        the blur when both are set. While the timer is paused only the
+        step is skipped. Returns the post-processed screen `f32[4, H, W]`,
+        or None without a post stage."""
         self._check_force_params()
         cm = None
         if color_maps is not None:
@@ -850,10 +884,12 @@ class Tendrils:
             of = (torch.as_tensor(of_frames[0], device=self.device),
                   torch.as_tensor(of_frames[1], device=self.device),
                   float(u["offset"]), float(u["lambda"]), float(u["speed"]))
+        blur_t = None if blur is None else tuple(float(v) for v in blur)
+        bokeh_t = None if bokeh is None else tuple(float(v) for v in bokeh)
         self.sim, screen = _frame_io(
             self.sim, self.params(), _f32(self.timer.time, self.device),
             _f32(self.timer.dt, self.device), self.config, self._view_size,
-            cm, color_alphas, seg, of, blur, bokeh,
+            cm, color_alphas, seg, of, blur_t, bokeh_t,
             stepping=not self.timer.paused,
             targets_live=self._targets_live,
             fast_resolve=fast_resolve_ok(self.config, self.state),

@@ -21,6 +21,8 @@ OF_UNIFORMS = {"offset": 0.05, "speed": 0.08}
 # The demo's colour-map blend weights, mic / track / video
 # (`tendrils_tpu/app/demo.py:152-153`).
 COLOR_ALPHAS = (0.1, 0.3, 0.8)
+# The demo's vignette blur, `(radius, limit)` (`app/demo.py:157-158`).
+DEMO_BLUR = (5.0, 0.4)
 AUDIO_BINS = 512  # frequency bins of the demo's 1024-point analysers
 
 
@@ -70,10 +72,14 @@ class IoFeed:
     4 pointer paths, fed to `step_draw_io` once a frame. With
     `color_maps`, also the demo's three colour maps every frame: two
     synthetic audio textures (mic and track, made from `seed`) and the
-    camera frame's grid, blended 0.1 / 0.3 / 0.8."""
+    camera frame's grid, blended 0.1 / 0.3 / 0.8. With `blur` (`(radius,
+    limit)`; the demo's is `DEMO_BLUR`), the post stage's vignette blur
+    every frame."""
 
-    def __init__(self, eng, n_pointers=4, color_maps=False, seed=0):
+    def __init__(self, eng, n_pointers=4, color_maps=False, seed=0,
+                 blur=None):
         self.eng = eng
+        self.blur = blur
         rng = np.random.default_rng(seed)
         self.audio = ((audio_texture(rng), audio_texture(rng)) if color_maps
                       else None)
@@ -85,7 +91,8 @@ class IoFeed:
         self.view_size = coords.cover_aspect((w, h))
 
     def frame(self, i):
-        """Camera frame `i` and a pointer sample, then one io frame."""
+        """Camera frame `i` and a pointer sample, then one io frame; returns
+        its screen (None without `blur`)."""
         eng = self.eng
         frame = camera_frame(i)
         self.ring.set_pixels(frame)
@@ -95,9 +102,11 @@ class IoFeed:
         maps = None
         if self.audio is not None:
             maps = (*self.audio, image_to_grid(frame))
-        eng.step_draw_io(
+        screen = eng.step_draw_io(
             color_maps=maps, color_alphas=COLOR_ALPHAS,
             segments=self.lines.segments(eng.timer.time, self.view_size,
                                          eng.config.flow_shape),
-            of_frames=self.ring.device_buffers(), of_uniforms=OF_UNIFORMS)
+            of_frames=self.ring.device_buffers(), of_uniforms=OF_UNIFORMS,
+            blur=self.blur)
         self.ring.step()
+        return screen

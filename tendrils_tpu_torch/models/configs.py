@@ -1,12 +1,14 @@
-"""Named sim configurations (`tendrils_tpu/models/configs.py`) for the
-port's slices: BASELINE config 2 (`one_m_flow`, the headless main path),
-config 3 (`respawn_stress_4m`, 4M particles, the caller respawning),
-config 4 (`optical_flow_driven`, the camera- and pointer-driven
-interactive frame, `Tendrils.step_draw_io`), config 5 (`live_show_16m`,
-16.7M particles at 4K, headless: its show frame's bokeh and blur are not
-ported yet) and the config-1 family preview. `build(name)` returns a
-spawned, ready-to-step engine on `device`; `EngineConfig(merge_reorder=
-True)` in place of its config turns the merge reorder on.
+"""Named sim configurations (`tendrils_tpu/models/configs.py`), the
+reference's quality tiers and BASELINE.md's five benchmark configs:
+config 1's family (`default_preview`, 256² particles; `bench.py:180-186`
+runs it at 720x1280 with `flowWeight = 0`), config 2 (`one_m_flow`, the
+headless main path), config 3 (`respawn_stress_4m`, 4M particles, the
+caller respawning), config 4 (`optical_flow_driven`, the camera- and
+pointer-driven interactive frame, `Tendrils.step_draw_io`) and config 5
+(`live_show_16m`, 16.7M particles at 4K; its show frame is
+`step_draw_io(bokeh=(3.0, 40.0))`). `build(name)` returns a spawned,
+ready-to-step engine on `device`; `EngineConfig(merge_reorder=True)` in
+place of its config turns the merge reorder on.
 """
 
 from ..engine import EngineConfig, Tendrils
@@ -56,6 +58,19 @@ def live_show_16m(view_res=(2160, 3840), device="cuda"):
     """BASELINE config 5 / north star: 16.7M particles, 4K trail buffer."""
     return _spawned(EngineConfig(root_num=4096, view_res=view_res,
                                  **_backends()), device=device)
+
+
+def quality_tier(level, view_res=(1080, 1920), device="cuda"):
+    """The reference's quality tiers — ref `demo.main.js:978-1009`:
+    rootNum × {1, 2, 4} (level 0, 1, 2) with damping nudged down per
+    tier."""
+    from ..state import default_state
+    d = default_state()
+    root = d["rootNum"] * (2 ** level)
+    eng = _spawned(EngineConfig(root_num=root, view_res=view_res,
+                                **_backends()), device=device)
+    eng.state["damping"] = d["damping"] - 1e-3 * level
+    return eng
 
 
 MODELS = {

@@ -32,3 +32,14 @@ def clip_to_pixel(p_clip, view_res):
     x = (p_clip[..., 0] * 0.5 + 0.5) * w
     y = (p_clip[..., 1] * 0.5 + 0.5) * h
     return torch.stack([x, y], dim=-1)
+
+
+def uv_grid(shape, dtype=torch.float32, device=None):
+    """Per-texel UVs of a `[h, w]` grid at pixel centres, `f32[h, w, 2]`:
+    `gl_FragCoord.xy / res` (the logic shader's `uv`,
+    `src/logic.frag:46`)."""
+    h, w = shape
+    ys = (torch.arange(h, dtype=dtype, device=device) + 0.5) / h
+    xs = (torch.arange(w, dtype=dtype, device=device) + 0.5) / w
+    v, u = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([u, v], dim=-1)

@@ -25,11 +25,17 @@ the sort; 2 the tile alone, the ids a stream of their own:
                                  (segment, sample) the strays (global
                                  atomics), in int64 fixed point, then
                                  the conversion to f32; four launches;
+                                 with `flow_off` (`flowWeight == 0`) the
+                                 view's 6 channels alone;
   K3 `resolve` (csrc/resolve.cu) per pixel: order-independent blend of
                                  both grids, fade, the decayed flow `eff`;
-                                 or the XLA resolve tail (`_widen_excess`,
-                                 `composite_over`) for line widths above
-                                 `KMAX_WIDTH` and the paused draw;
+                                 with `flow_off` the view alone
+                                 (`resolve_view`), the flow grid passing
+                                 through untouched; or the XLA resolve
+                                 tail (`_widen_excess`, `composite_over`)
+                                 for line widths above `KMAX_WIDTH` and
+                                 the paused draw, which keeps all 11
+                                 channels;
   K6 `reconstruct_resident` (csrc/gather.cu) per sorted row: the state
                                  reassembly alone, for frames that gather
                                  the force after editing the flow.
@@ -42,10 +48,12 @@ map's four scalars, computed in the splat, or, for a textured map, as the
 rgba8 word K1 packs. K1 and K2 are one kernel each whose optional streams
 are switched by null pointers; each variant counts under its own name
 (`pack`, `pack_rgba`, `pack_p0_rgba`, with `_g2` or `_g3` in gather modes
-2 and 3; `splat`, `splat_rgba`, `splat_p0_rgba`; `_variant`).
+2 and 3; `splat`, `splat_rgba`, `splat_p0_rgba`, with `_view` for the
+view-only launch; `_variant`).
 
 Each kernel's wrapper takes the plain PyTorch version (`pack_plain`,
-`splat_plain`, `resolve_plain`, `reconstruct_resident_plain`) when its
+`splat_plain`, `resolve_plain`, `resolve_view_plain`,
+`reconstruct_resident_plain`) when its
 tensors lie on the CPU and launches the kernel when they lie on a CUDA
 device. The packed words, the keys and the sorted order are the
 reference's contracts and match it bit for bit; the accumulator is summed
@@ -66,6 +74,9 @@ N_CHAN = 11
 # flow channels (vx·α, vy·α, wf·α, α, log(1-α)) lead the stack, then the
 # view's (r·α, g·α, b·α, a·α, α, log(1-α)).
 N_FLOW = 5
+# With `flow_off` (`flowWeight == 0`) the accumulator holds the view's
+# channels alone.
+N_VIEW = N_CHAN - N_FLOW
 # Gather mode 1 (the combined 20-bit key|id word) bounds.
 G1_MAX_ROWS = 1 << 20
 G1_MAX_TILES = 1 << 11
@@ -135,10 +146,19 @@ def _idx_bits(gather):
     return {1: 20, 3: PACK_IDX_BITS}.get(gather, 0)
 
 
-def _variant(kernel, p0, rgba, gather=0):
-    """Counter name of a K1/K2 variant: `kernel[_p0][_rgba][_g2|_g3]`."""
+def _variant(kernel, p0, rgba, gather=0, flow_off=False):
+    """Counter name of a K1/K2 variant: `kernel[_p0][_rgba][_g2|_g3]`, with
+    `_view` for K2's view-only launch (`flow_off`)."""
     return (kernel + ("_p0" if p0 else "") + ("_rgba" if rgba else "")
-            + (f"_g{gather}" if gather in (2, 3) else ""))
+            + (f"_g{gather}" if gather in (2, 3) else "")
+            + ("_view" if flow_off else ""))
+
+
+def first_channel(flow_off):
+    """The global channel of the accumulator's first plane: 0, or N_FLOW
+    when `flow_off` drops the flow channels. The view's planes keep the
+    fixed-point steps of their global channels (`csrc/splat.cu`)."""
+    return N_FLOW if flow_off else 0
 
 
 def _unq15(q):
@@ -341,30 +361,32 @@ SPLAT_QUEUE_HEAD = 2
 
 
 def splat(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw, pscale,
-          p0=None, rgba=None):
+          p0=None, rgba=None, flow_off=False):
     """K2: expand each sorted segment into `samples` deposit points and
     accumulate both passes' box footprints. `keym_s`: the tile-sorted
     keys, `tile << idx_bits | id` (`_idx_bits`); `p0`: the sorted p0
     words, or None to derive p0 from p1 and the velocity; `rgba`: the
     sorted rgba8 words, or None to compute the colour model of a 1x1
-    colour map from the scalars. Returns the padded accumulator `f32[N_CHAN,
-    hp, wp]`, every texel written by the kernels (`csrc/splat.cu`: the
-    plan that finds each output tile's source rows in the sorted keys,
-    the tile pass that adds each sample fitting its key tile's region in
-    shared memory, the stray pass for the rest, all in int64 fixed point,
-    and the conversion to f32), the same bits on every call with the same
-    inputs."""
+    colour map from the scalars; `flow_off`: the view's channels alone.
+    Returns the padded accumulator `f32[N_CHAN, hp, wp]` (`f32[N_VIEW, hp,
+    wp]` with `flow_off`), every texel written by the kernels
+    (`csrc/splat.cu`: the plan that finds each output tile's source rows
+    in the sorted keys, the tile pass that adds each sample fitting its
+    key tile's region in shared memory, the stray pass for the rest, all
+    in int64 fixed point, and the conversion to f32), the same bits on
+    every call with the same inputs."""
     tensors = [t for t in (scal, keym_s, p1, vl, p0, rgba) if t is not None]
     if cuda_lib.on_cpu(*tensors):
         return splat_plain(scal, p1, vl, samples=samples, grid_hw=grid_hw,
-                           pscale=pscale, p0=p0, rgba=rgba)
+                           pscale=pscale, p0=p0, rgba=rgba,
+                           flow_off=flow_off)
     return splat_planned(scal, keym_s, p1, vl, idx_bits=idx_bits,
                          samples=samples, grid_hw=grid_hw, pscale=pscale,
-                         p0=p0, rgba=rgba)[0]
+                         p0=p0, rgba=rgba, flow_off=flow_off)[0]
 
 
 def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
-                  pscale, p0=None, rgba=None):
+                  pscale, p0=None, rgba=None, flow_off=False):
     """`splat`'s four launches on CUDA tensors: `(accum, info, queue)`,
     the accumulator and the plan it ran (per tile `SPLAT_INFO` words: the
     run starts of its source tiles above-left, above, left and its own,
@@ -382,21 +404,24 @@ def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
     chunk = split_chunk(n)
     cap = queue_cap(n, chunk)
     dev = p1.device
-    # The fixed-point sums, then their f32 conversion.
-    fix = torch.empty((N_CHAN, hp, wp), dtype=torch.int64, device=dev)
-    accum = torch.empty((N_CHAN, hp, wp), dtype=_F32, device=dev)
+    # The fixed-point sums of the planes from global channel ch0 on, then
+    # their f32 conversion.
+    ch0 = first_channel(flow_off)
+    fix = torch.empty((N_CHAN - ch0, hp, wp), dtype=torch.int64, device=dev)
+    accum = torch.empty((N_CHAN - ch0, hp, wp), dtype=_F32, device=dev)
     info = torch.empty(SPLAT_INFO * tiles_y * tiles_x, dtype=_I32,
                        device=dev)
     queue = torch.empty(SPLAT_QUEUE_HEAD + 2 * cap, dtype=_I32, device=dev)
-    name = _variant("splat", p0 is not None, rgba is not None)
+    name = _variant("splat", p0 is not None, rgba is not None,
+                    flow_off=flow_off)
     cuda_lib.launch("tt_splat_plan", name, keym_s, n, idx_bits, hp, wp,
-                    chunk, info, queue, cap, fix)
+                    chunk, ch0, info, queue, cap, fix)
     args = (scal, keym_s, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
-            idx_bits, float(pscale))
+            idx_bits, float(pscale), ch0)
     cuda_lib.launch("tt_splat_tiles", name, *args, info, queue, cap, fix)
     cuda_lib.launch("tt_splat_strays", name, *args, queue, fix)
-    cuda_lib.launch("tt_splat_convert", name, scal, n, samples, hp, wp, fix,
-                    accum)
+    cuda_lib.launch("tt_splat_convert", name, scal, n, samples, hp, wp, ch0,
+                    fix, accum)
     return accum, info, queue
 
 
@@ -421,11 +446,12 @@ def _cover(idx, lo, hi):
 
 
 def _splat_terms(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
-                 rgba=None):
+                 rgba=None, flow_off=False):
     """K2's per-sample arithmetic over all segments and samples at once:
     `(gx, gy, groups)`, the quantised centres `f32[S, N]` and, for the
-    flow and the view channel group, `(chans [C, S, N], first plane, 1 /
-    width, (lo_y, hi_y, floor lo_y), (lo_x, hi_x, floor lo_x))`."""
+    flow and the view channel group (the view's alone, at plane 0, with
+    `flow_off`), `(chans [C, S, N], first plane, 1 / width, (lo_y, hi_y,
+    floor lo_y), (lo_x, hi_x, floor lo_x))`."""
     h, w = grid_hw
     dev = p1.device
     sl = scal[0]
@@ -469,12 +495,16 @@ def _splat_terms(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
     gy = torch.round(yp * pscale) * inv_p - 0.5
     av = torch.clamp(ca * a, 0.0, 1.0 - 1e-4)
     af = torch.clamp(wf * a, max=1.0 - 1e-4)
+    view = torch.stack([cr * av, cg * av, cb * av, ca * av, av,
+                        torch.log1p(-av)])
+    if flow_off:
+        group_list = [(view, 0, scal[3])]
+    else:
+        group_list = [(torch.stack([vx * af, vy * af, wf * af, af,
+                                    torch.log1p(-af)]), 0, scal[2]),
+                      (view, N_FLOW, scal[3])]
     groups = []
-    for chans, ch0, width in (
-            (torch.stack([vx * af, vy * af, wf * af, af, torch.log1p(-af)]),
-             0, scal[2]),
-            (torch.stack([cr * av, cg * av, cb * av, ca * av, av,
-                          torch.log1p(-av)]), N_FLOW, scal[3])):
+    for chans, ch0, width in group_list:
         width = torch.clamp(width, 1.0, KMAX_WIDTH)
         hw = width * 0.5
         lo_y, hi_y = gy + (0.5 - hw), gy + (0.5 + hw)
@@ -487,8 +517,8 @@ def _splat_terms(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
 
 def _box_deposits(groups, hp, wp):
     """The deposits of the box footprints of `groups` (`_splat_terms`),
-    one footprint offset at a time (<= 9 x 9 offsets, both channel groups
-    and all samples at once): `(index, value)`, flat indices into `[N_CHAN
+    one footprint offset at a time (<= 9 x 9 offsets, every channel group
+    and all samples at once): `(index, value)`, flat indices into `[planes
     * hp * wp]` and the values `(wr * chan) * wc` (0 where the offset adds
     nothing)."""
     for oy in range(KSPAN):
@@ -514,7 +544,7 @@ def _box_deposits(groups, hp, wp):
 
 def _add_boxes(accum, groups, hp, wp):
     """Add the box footprints of `groups` (`_splat_terms`) into the flat
-    `f32[N_CHAN * hp * wp]` accumulator with one `index_add_` per
+    `f32[planes * hp * wp]` accumulator with one `index_add_` per
     footprint offset (`_box_deposits`)."""
     for index, value in _box_deposits(groups, hp, wp):
         accum.index_add_(0, index, value)
@@ -522,18 +552,19 @@ def _add_boxes(accum, groups, hp, wp):
 
 
 def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
-                rgba=None):
+                rgba=None, flow_off=False):
     """Plain version of K2: the same per-sample arithmetic, deposited with
     one `index_add_` per footprint offset (<= 9 x 9 offsets, both channel
-    groups and all samples at once)."""
-    cuda_lib.plain_calls[_variant("splat", p0 is not None,
-                                  rgba is not None)] += 1
+    groups, or the view's with `flow_off`, and all samples at once)."""
+    cuda_lib.plain_calls[_variant("splat", p0 is not None, rgba is not None,
+                                  flow_off=flow_off)] += 1
     hp, wp = pad_dims(*grid_hw)
     _, _, groups = _splat_terms(scal, p1, vl, samples=samples,
                                 grid_hw=grid_hw, pscale=pscale, p0=p0,
-                                rgba=rgba)
-    accum = torch.zeros(N_CHAN * hp * wp, dtype=_F32, device=p1.device)
-    return _add_boxes(accum, groups, hp, wp).reshape(N_CHAN, hp, wp)
+                                rgba=rgba, flow_off=flow_off)
+    planes = N_CHAN - first_channel(flow_off)
+    accum = torch.zeros(planes * hp * wp, dtype=_F32, device=p1.device)
+    return _add_boxes(accum, groups, hp, wp).reshape(planes, hp, wp)
 
 
 # --- K2's tile partition -----------------------------------------------------
@@ -622,7 +653,7 @@ def _merge_or_sort(keym, reorder, n_tiles, idx_bits):
 
 
 def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
-                   pscale, reorder=None):
+                   pscale, reorder=None, flow_off=False):
     """Sort the segments by their key, then splat them (K2).
 
     `words`: K1's `(keym, p1, vl, p0, rgba)`, p0 and rgba None when not
@@ -637,6 +668,7 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
     `p1_from_ride`: the same f32 pixel transform, clip and round as the
     pack, so bit-identical); without it, p1 is sorted. `reorder`: the
     merge reorder's carry (`_merge_or_sort`) in place of the sort.
+    `flow_off`: the view's channels alone (K2's view-only launch).
     Returns `(accum, aux, ride_sorted, carry)`: aux = `(idx_s, p1_s)`, the
     sorted row ids (from the key in modes 1 and 3, sorted along in mode 2)
     and p1 words (None in mode 0), ride_sorted = `[x_s, y_s, vl_s]` (None
@@ -668,7 +700,7 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
         ride_s = [x_s, y_s, vl_s]
     accum = splat(scal, keym_s, p1_s, vl_s, idx_bits=_idx_bits(gather),
                   samples=samples, grid_hw=grid_hw, pscale=pscale, p0=p0_s,
-                  rgba=rgba_s)
+                  rgba=rgba_s, flow_off=flow_off)
     aux = None
     if gather == 2:
         aux = (idx[perm], p1_s)
@@ -698,8 +730,10 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
     `idx_bound`) selects gather mode 1, 2 or 3 (`gather_mode`) and
     `ride=[x, y]` the resident stream. `reorder=(prev_key, prev_hist)`
     (resident frames): the merge reorder's carry, used where
-    `reorder_cuda.merge_eligible` admits the stream. Returns
-    `(accum f32[11, hp, wp], None, aux, ride_sorted)` with `raw_accum`,
+    `reorder_cuda.merge_eligible` admits the stream. `flow_off` (with
+    `raw_accum`, as the JAX function asserts) drops the flow channels: the
+    accumulator holds the view's six. Returns `(accum f32[11 or 6, hp,
+    wp], None, aux, ride_sorted)` with `raw_accum`,
     else `(flow_parts, view_parts, aux, ride_sorted)`, each part
     `(num, wsum, logt)` over the content grid (`draw_pallas.py:1030-1035`);
     aux is None without `idx`, ride_sorted None without `ride` (see
@@ -714,8 +748,9 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
         raise ValueError("mapped_scalar requires derive_p0")
     if ride is not None and len(ride) != 2:
         raise not_ported("live targets riding the sort", 7)
-    if flow_off:
-        raise not_ported("flow_off (flowWeight == 0)", 7)
+    if flow_off and not raw_accum:
+        raise ValueError("flow channel pruning requires the kernel resolve "
+                         "(raw_accum)")
     h, w = grid_hw
     hp, wp = pad_dims(h, w)
     n = p1_pix.shape[0]
@@ -742,7 +777,7 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
                  mapped=mapped, gather=gather)
     accum, aux, ride_s, carry = _bin_and_splat(
         scal, words, ride, idx=idx, gather=gather, samples=samples,
-        grid_hw=grid_hw, pscale=pscale, reorder=merge)
+        grid_hw=grid_hw, pscale=pscale, reorder=merge, flow_off=flow_off)
     tail = () if reorder is None else (carry,)
     if raw_accum:
         return (accum, None, aux, ride_s, *tail)
@@ -847,8 +882,8 @@ def resolve_plain(rscal, accum, flow, view, *, want_eff=False):
     cuda_lib.plain_calls["resolve"] += 1
     _, h, w = view.shape
     a = accum[:, PAD_LO_H:PAD_LO_H + h, PAD_LO_W:PAD_LO_W + w]
-    time, read_time, fdecay, clear = rscal[0], rscal[1], rscal[2], rscal[3]
-    fade, sf, sv, eps = rscal[4:8], rscal[8], rscal[9], rscal[10]
+    time, read_time, fdecay = rscal[0], rscal[1], rscal[2]
+    sf, eps = rscal[8], rscal[10]
 
     wsum_f = a[3] * sf
     t_f = torch.exp(a[4] * sf)
@@ -856,17 +891,50 @@ def resolve_plain(rscal, accum, flow, view, *, want_eff=False):
     fnum = (a[0] * sf, a[1] * sf, time * wsum_f, a[2] * sf)
     nf = torch.stack([flow[k] * t_f + fnum[k] * gain_f for k in range(4)])
 
-    fa = fade[3]
-    wsum_v = a[N_FLOW + 4] * sv
-    t_v = torch.exp(a[N_FLOW + 5] * sv)
-    gain_v = (1.0 - t_v) / torch.maximum(wsum_v, eps)
-    nv = torch.stack([
-        (fade[k] * fa + (view[k] * (1.0 - clear)) * (1.0 - fa)) * t_v
-        + (a[N_FLOW + k] * sv) * gain_v for k in range(4)])
+    nv = _blend_view(rscal, a[N_FLOW:], view)
     if not want_eff:
         return nf, nv
     decay = torch.clamp(1.0 - (read_time - nf[2]) * fdecay, min=0.0)
     return nf, nv, nf[:2] * decay
+
+
+def resolve_view(rscal, accum, view):
+    """K3's view-only variant (`flow_off`): blend the view-only padded
+    accumulator `f32[N_VIEW, hp, wp]` over the previous view `f32[4, H, W]`
+    (cleared and faded first). Returns a fresh new view; no flow, no
+    `eff`."""
+    if cuda_lib.on_cpu(rscal, accum, view):
+        return resolve_view_plain(rscal, accum, view)
+    _, h, w = view.shape
+    hp, wp = pad_dims(h, w)
+    cuda_lib.check(rscal, "rscal", _F32, (16,))
+    cuda_lib.check(accum, "accum", _F32, (N_VIEW, hp, wp))
+    cuda_lib.check(view, "view", _F32, (4, h, w))
+    new_view = torch.empty_like(view)
+    cuda_lib.launch("tt_resolve_view", "resolve_view", rscal, accum, view,
+                    h, w, hp, wp, new_view)
+    return new_view
+
+
+def _blend_view(rscal, a, view):
+    """The view's blend of K3 (`_resolve_kernel`): `a` holds the view's
+    six content planes (r.a, g.a, b.a, a.a, a, log(1 - a))."""
+    clear, fade, sv, eps = rscal[3], rscal[4:8], rscal[9], rscal[10]
+    fa = fade[3]
+    wsum_v = a[4] * sv
+    t_v = torch.exp(a[5] * sv)
+    gain_v = (1.0 - t_v) / torch.maximum(wsum_v, eps)
+    return torch.stack([
+        (fade[k] * fa + (view[k] * (1.0 - clear)) * (1.0 - fa)) * t_v
+        + (a[k] * sv) * gain_v for k in range(4)])
+
+
+def resolve_view_plain(rscal, accum, view):
+    """Plain version of K3's view-only variant."""
+    cuda_lib.plain_calls["resolve_view"] += 1
+    _, h, w = view.shape
+    a = accum[:, PAD_LO_H:PAD_LO_H + h, PAD_LO_W:PAD_LO_W + w]
+    return _blend_view(rscal, a, view)
 
 
 def resolve_fused(accum, flow, view, fade_rgba, auto_clear, time, read_time,
@@ -875,11 +943,16 @@ def resolve_fused(accum, flow, view, fade_rgba, auto_clear, time, read_time,
     """Resolve both passes' padded accumulator over the previous flow/view
     grids (K3), with `autoClearView` + fade of the previous view. Returns
     `(new_flow, new_view)` or, with `want_eff`, also the decayed flow at
-    `read_time` (content layout, for the next force gather)."""
-    if flow_off:
-        raise not_ported("the view-only resolve of flow_off", 7)
+    `read_time` (content layout, for the next force gather). With
+    `flow_off` the accumulator holds the view's channels alone, `flow` is
+    not read (None is fine) and the result is `(new_view,)`, as the JAX
+    function returns it (`want_eff` is refused)."""
     rscal = _resolve_scal(fade_rgba, auto_clear, time, read_time, flow_decay,
                           flow_width, line_width, accum.device)
+    if flow_off:
+        if want_eff:
+            raise ValueError("the view-only resolve emits no eff")
+        return (resolve_view(rscal, accum, view),)
     return resolve(rscal, accum, flow, view, want_eff=want_eff)
 
 
@@ -943,12 +1016,19 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
     branch (read back from `params` when not given). Returns `(new_flow,
     new_view, aux, ride_sorted[, eff][, carry])`; `eff`, the flow decayed
     to `read_time`, only from K3; `carry` (the merge reorder's, see
-    `fused_draw_accumulate`) only with `reorder`."""
+    `fused_draw_accumulate`) only with `reorder`.
+
+    `flow_off` (`flowWeight == 0`) prunes the flow channels where the
+    JAX function does (`draw_pallas.py:1610`): with K3 and without
+    `want_eff`. Then K2 and K3 run their view-only variants and `new_flow`
+    is the incoming `flow`, untouched; the XLA tail keeps all 11
+    channels."""
     if resolve not in ("kernel", "xla"):
         raise ValueError(f"unknown resolve: {resolve}")
     if psum is not None:
         raise not_ported("the sharded draw", 12)
     kernel = resolve == "kernel"
+    flow_off = flow_off and kernel and not want_eff
     out = fused_draw_accumulate(
         grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
         params["speedLimit"], time, idx=idx, ride=ride,
@@ -966,7 +1046,10 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
             out[0], flow, view, params["fadeColor"] * params["autoFade"],
             params["autoClearView"], time,
             time if read_time is None else read_time, params["flowDecay"],
-            params["flowWidth"], params["lineWidth"], want_eff=want_eff)
+            params["flowWidth"], params["lineWidth"], want_eff=want_eff,
+            flow_off=flow_off)
+        if flow_off:
+            res = (flow, *res)
         return (res[0], res[1], aux, ride_s, *res[2:], *tail)
     fw, lw = host_widths or (params["flowWidth"], params["lineWidth"])
     return (composite_over(flow, *_widen_excess(out[0], fw)),

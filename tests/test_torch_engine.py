@@ -115,16 +115,6 @@ def test_unported_branches_raise():
     eng = tengine.Tendrils(cfg, device="cpu").setup()
     with pytest.raises(NotImplementedError, match="item 7"):
         eng.spawn_shader(lambda p, e: p, target="targets")
-    eng.state["flowWeight"] = 0.0
-    with pytest.raises(NotImplementedError, match="flow_off"):
-        eng.frame()
-    with pytest.raises(NotImplementedError, match="flow_off"):
-        eng.step_draw_io()
-    with pytest.raises(NotImplementedError, match="flow_off.*item 7"):
-        tengine.run_headless(eng.sim, eng.params(), cfg, eng._view_size,
-                             0.0, 16.0, 1, targets_live=False,
-                             flow_off=True)
-    eng.state["flowWeight"] = 1.0
     # Live targets riding the resident sort, the sharded draw.
     with pytest.raises(NotImplementedError, match="live targets.*item 7"):
         tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
@@ -138,12 +128,6 @@ def test_unported_branches_raise():
                                device="cpu").setup()
     with pytest.raises(NotImplementedError, match="generic.*item 4"):
         generic.frame()
-    # The interactive frame's unported post stack.
-    io = tengine.Tendrils(cfg, device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="blur, bokeh.*item 9"):
-        io.step_draw_io(blur=(3.0, 1.0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        io.step_draw_io(bokeh=(2.0, 0.5))
     # The xla splat backend (e.g. from a converted JAX config).
     seg = (np.zeros((2, 2), np.float32), np.ones((2, 2), np.float32),
            np.full((2, 2), 0.01, np.float32))
@@ -151,9 +135,6 @@ def test_unported_branches_raise():
                            device="cpu").setup()
     with pytest.raises(NotImplementedError, match="xla splat.*item 4"):
         xla.inject_flow_segments(*seg, 2.0)
-    io.timer.paused = True
-    with pytest.raises(NotImplementedError, match="blur, bokeh"):
-        io.step_draw_io(blur=(3.0, 1.0))
 
 
 def test_resident_frame_with_textured_colour_map(jax_run):
@@ -225,3 +206,23 @@ def test_force_from_aux_unsort_matches_jax():
     np.testing.assert_allclose(tforce.numpy(), np.asarray(jforce),
                                rtol=0, atol=2 * sl / HALF * 1.001)
     assert np.abs(tforce.numpy()).max() == pytest.approx(sl)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_quality_tier_matches_jax(level):
+    """`models.quality_tier`: the reference's rootNum x {1, 2, 4} tiers with
+    damping nudged down per tier, as the JAX function builds them (the
+    engines' configs and state at a small view)."""
+    from tendrils_tpu.models import configs as jconfigs
+    from tendrils_tpu_torch import models
+    t = models.quality_tier(level, view_res=(16, 128), device="cpu")
+    j = jconfigs.quality_tier(level, view_res=(16, 128))
+    # Off the TPU the JAX zoo picks its "xla" backends; the port's are its
+    # kernels (the JAX package's "pallas").
+    assert t.config == dataclasses.replace(
+        convert.engine_config(j.config), splat_backend="kernel",
+        gather_backend="kernel")
+    assert t.config.root_num == 512 * 2 ** level
+    assert t.state["damping"] == pytest.approx(j.state["damping"], abs=0)
+    assert ((t.sim.particles[0] > -9e5).sum().item()
+            == int((np.asarray(j.sim.particles[0]) > -9e5).sum()))

@@ -300,3 +300,78 @@ def test_k9_fixed_point_sums_are_order_free(m):
                                                         alpha)
     want = torch.cat([num, wsum[None], logt[None]]).numpy()
     _within_channel_max(a[1], want, 6)
+
+
+# --- K2's view-only launch (flow_off) ----------------------------------------
+
+
+def _view_launch():
+    """K2's view-only launch, transcribed from `splat.cu` (each expression
+    asserted in the source): `(planes, groups, view plane offset,
+    step_of)`, step_of(plane) the global channel whose fixed-point step a
+    scratch plane takes in each pass (tile pass, strays, conversion)."""
+    ch0 = draw_cuda.first_channel(True)
+    assert ch0 == N_FLOW
+    assert "return ch0 == 0 ? 2 : 1;" in SPLAT  # channel_groups
+    groups = 2 if ch0 == 0 else 1
+    assert "(N_CHAN - ch0) * TILE_H * Q" in SPLAT  # the plan's zeroing
+    assert "(long long)(N_CHAN - ch0) * plane4" in SPLAT  # the conversion
+    planes = N_CHAN - ch0
+    # The tile pass's view group: its planes start at N_FLOW - ch0, its
+    # steps are the view's global channels N_FLOW + k.
+    assert "fix + (N_FLOW - P.ch0) * (long long)P.hp * P.wp);" in SPLAT
+    assert "channel_shift(P.scal, (NCH == N_FLOW ? 0 : N_FLOW) + k," in SPLAT
+    # The strays: the flow group only when ch0 == 0, the view's steps
+    # N_FLOW + k into the same planes.
+    assert "if (P.ch0 == 0 && group_channels<N_FLOW>(P, i, g, ch))" in SPLAT
+    assert "channel_shift(P.scal, N_FLOW + k, P.n, P.samples)" in SPLAT
+    # The conversion: scratch plane p is global channel ch0 + p.
+    assert "channel_shift(scal, ch0 + (int)(i / plane4), n," in SPLAT
+    view_plane0 = N_FLOW - ch0
+    return planes, groups, view_plane0, (
+        lambda p: N_FLOW + (p - view_plane0),  # tile pass and strays
+        lambda p: ch0 + p)  # conversion
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_k2_view_only_launch_keeps_the_global_steps(variant):
+    """K2's view-only launch (6 planes, one channel group): every pass
+    quantises scratch plane p at the step of global channel N_FLOW + p, so
+    the emulated sums, in two orders, are planes 5-10 of the 11-channel
+    sums bit for bit, within 1e-5 of each channel's max of the view-only
+    `splat_plain`; quantised at the flow channels' steps (plane p at
+    channel p), they would not be."""
+    planes, groups, view_plane0, steps = _view_launch()
+    assert (planes, groups, view_plane0) == (draw_cuda.N_VIEW, 1, 0)
+    n = 3000
+    scal, p1, vl, kw = _stream(variant, n, 4)
+    adds = n * kw["samples"]
+    for step_of in steps:
+        assert [step_of(p) for p in range(planes)] == list(
+            range(N_FLOW, N_CHAN))
+    hp, wp = pad_dims(*GRID)
+    _, _, groups_v = draw_cuda._splat_terms(scal, p1, vl, flow_off=True,
+                                            **kw)
+    assert [g[1] for g in groups_v] == [view_plane0]
+    index, value = (torch.cat(a).numpy() for a in zip(
+        *draw_cuda._box_deposits(groups_v, hp, wp)))
+    shifts = [fixed_shift(add_bound(SPEED_LIMIT, steps[1](p)), adds)
+              for p in range(planes)]
+    size = planes * hp * wp
+    rng = np.random.default_rng(5)
+    a = _emulate(index, value, shifts, size, np.arange(index.size))
+    b = _emulate(index, value, shifts, size, rng.permutation(index.size))
+    np.testing.assert_array_equal(a[0], b[0])
+    full_index, full_value = _k2_deposits(scal, p1, vl, kw)
+    full = _emulate(full_index, full_value,
+                    [fixed_shift(add_bound(SPEED_LIMIT, k), adds)
+                     for k in range(N_CHAN)], N_CHAN * hp * wp,
+                    np.arange(full_index.size))
+    np.testing.assert_array_equal(a[0], full[0][N_FLOW * hp * wp:])
+    np.testing.assert_array_equal(a[1], full[1][N_FLOW * hp * wp:])
+    want = draw_cuda.splat_plain(scal, p1, vl, flow_off=True, **kw).numpy()
+    _within_channel_max(a[1], want, planes)
+    wrong = _emulate(index, value,
+                     [fixed_shift(add_bound(SPEED_LIMIT, p), adds)
+                      for p in range(planes)], size, np.arange(index.size))
+    assert not np.array_equal(wrong[0], a[0])

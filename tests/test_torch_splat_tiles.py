@@ -129,12 +129,14 @@ def _sample_fits(tile, gx, gy, scal, tiles_x):
 
 def _fits(scal, keym_s, p1, vl, *, bits, **kw):
     """`(fits, live, groups)`: which samples `bool[S, N]` of the sorted
-    stream fit their key tile's region, which carry mass (the others add
-    nothing in either pass), and their deposit terms (`_splat_terms`)."""
+    stream fit their key tile's region, which carry mass in a channel
+    group of the launch (the others add nothing in either pass; a group's
+    alpha is its channel before the log), and their deposit terms
+    (`_splat_terms`)."""
     gx, gy, groups = tdraw._splat_terms(scal, p1, vl, **kw)
     fits = _sample_fits((keym_s >> bits)[None], gx, gy, scal,
                         tdraw.splat_tiles(GRID)[1])
-    live = (groups[0][0][3] > 0) | (groups[1][0][4] > 0)
+    live = torch.stack([chans[-2] > 0 for chans, *_ in groups]).any(dim=0)
     return fits, live, groups
 
 
@@ -155,8 +157,9 @@ def _tile_mirror(scal, keym_s, p1, vl, *, bits, chunk, **kw):
     tiles_y, tiles_x = tdraw.splat_tiles(GRID)
     fits, _, groups = _fits(scal, keym_s, p1, vl, bits=bits, **kw)
     starts = _tile_starts(keym_s, bits, tiles_y * tiles_x)
-    size = tdraw.N_CHAN * hp * wp
-    tiles = torch.zeros(tdraw.N_CHAN, hp, wp)
+    planes = tdraw.N_CHAN - tdraw.first_channel(kw.get("flow_off", False))
+    size = planes * hp * wp
+    tiles = torch.zeros(planes, hp, wp)
     for t in range(tiles_y * tiles_x):
         runs = _source_runs(starts, t, tiles_x)
         rows = torch.cat([torch.arange(a, b) for a, b in runs])
@@ -466,3 +469,74 @@ def test_tile_mirror_sums_to_plain(case, gather, exact_p0, n):
     assert (err <= 1e-6 * scale).all(), (err, scale)
     fits, live, _ = _fits(scal, keym_s, p1, vl, bits=bits, **kw)
     assert (strays.abs().sum() > 0) == bool((live & ~fits).any())
+
+
+# --- the view-only launch (flow_off) -----------------------------------------
+
+
+def _launch_groups(ch0):
+    """The tile pass's channel groups for a scratch from global channel
+    `ch0`, transcribed from `splat.cu` (the grid's y extent,
+    `channel_groups`, and the group each `blockIdx.y` runs): `[(group,
+    first scratch plane)]`, group 0 the flow's, 1 the view's."""
+    src = (CSRC / "splat.cu").read_text()
+    assert "return ch0 == 0 ? 2 : 1;" in src
+    assert re.search(r"const dim3 grid\(queue_cap \+ \(hp / TILE_H\) \* "
+                     r"\(wp / TILE_W\),\s+channel_groups\(ch0\)\);", src)
+    assert "const int group = (int)blockIdx.y + 2 - channel_groups(P.ch0);" \
+        in src
+    assert "fix + (N_FLOW - P.ch0) * (long long)P.hp * P.wp);" in src
+    n_groups = 2 if ch0 == 0 else 1
+    groups = [y + 2 - n_groups for y in range(n_groups)]
+    return [(g, 0 if g == 0 else tdraw.N_FLOW - ch0) for g in groups]
+
+
+def test_view_only_launch_is_one_group():
+    """The 11-channel launch runs both groups (the view's at plane 5), the
+    view-only one the view's alone at plane 0: the planes the plain
+    splat's groups fill."""
+    assert _launch_groups(0) == [(0, 0), (1, tdraw.N_FLOW)]
+    assert _launch_groups(tdraw.first_channel(True)) == [(1, 0)]
+    scal, (keym_s, p1, vl, p0), _ = _sorted_case("gather1", 1, False, 2048)
+    kw = dict(samples=SAMPLES, grid_hw=GRID, pscale=tdraw.pos_scale_for(GRID),
+              p0=p0)
+    for flow_off in (False, True):
+        groups = tdraw._splat_terms(scal, p1, vl, flow_off=flow_off, **kw)[2]
+        launch = _launch_groups(tdraw.first_channel(flow_off))
+        assert [g[1] for g in groups] == [plane for _, plane in launch]
+        assert [len(g[0]) for g in groups] == [
+            (tdraw.N_FLOW, tdraw.N_VIEW)[group] for group, _ in launch]
+
+
+VIEW_CASES = [c for c in CASES if c[0] in ("gather0", "gather1", "merge",
+                                           "long")]
+
+
+@pytest.mark.parametrize("case,gather,exact_p0,n", VIEW_CASES,
+                         ids=[c[0] for c in VIEW_CASES])
+def test_view_only_tile_mirror_sums_to_plain(case, gather, exact_p0, n):
+    """The view-only launch's tile pass (one group, six planes) plus its
+    stray pass sum to the view-only `splat_plain` within 1e-6 of each
+    channel's max, which is planes 5-10 of the 11-channel one bit for
+    bit; the strays are the same samples as the 11-channel launch's."""
+    scal, (keym_s, p1, vl, p0), bits = _sorted_case(case, gather, exact_p0,
+                                                    n)
+    kw = dict(samples=SAMPLES, grid_hw=GRID,
+              pscale=tdraw.pos_scale_for(GRID), p0=p0)
+    tiles, strays = _tile_mirror(scal, keym_s, p1, vl, bits=bits,
+                                 chunk=1024, flow_off=True, **kw)
+    want = tdraw.splat_plain(scal, p1, vl, flow_off=True, **kw)
+    assert want.shape[0] == tdraw.N_VIEW
+    assert torch.equal(tdraw.splat(scal, keym_s, p1, vl, idx_bits=bits,
+                                   flow_off=True, **kw), want)
+    assert torch.equal(want, tdraw.splat_plain(scal, p1, vl, **kw)[
+        tdraw.N_FLOW:])
+    scale = want.abs().reshape(want.shape[0], -1).amax(dim=1)
+    assert (scale > 0).all()
+    err = (tiles + strays - want).abs().reshape(want.shape[0], -1).amax(dim=1)
+    assert (err <= 1e-6 * scale).all(), (err, scale)
+    fits, live, _ = _fits(scal, keym_s, p1, vl, bits=bits, flow_off=True,
+                          **kw)
+    assert (strays.abs().sum() > 0) == bool((live & ~fits).any())
+    if case == "long":
+        assert (live & ~fits).any()
