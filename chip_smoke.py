@@ -88,7 +88,31 @@ Phases (each prints a line; any failure exits non-zero before the result):
      then bokeh alone on the show frame's view in both stack forms (the
      windowed boxes, the banded matmuls), each with its max |d| and p99.9
      against the same bokeh in float64 on the card and its device ms; the
-     facade's form must be within 5e-3 max and 2e-3 p99.9.
+     facade's form must be within 5e-3 max and 2e-3 p99.9;
+ 14. the spawners and live targets, on the demo's wiring
+     (`tendrils_tpu/app/demo.py:99-115, 271-332`): at config 5 on phase
+     10's engine (gather mode 3) a `direct` target spawn from the
+     synthetic 480x640 camera frame (its device ms at 16.8M rows), 2 warm
+     steps and 3 timed runs of 10 of `run_headless(targets_live=True)`,
+     beside phase 10's figure; at config 2 a ball spawn, then each
+     spawner once (`flow-sample` from the flow, `data-sample` from the
+     particles, `GeometrySpawner.shuffle()`, `direct` and `best-sample`
+     from the camera), each timed and each followed by a frame that
+     gathers its force with K5, then a `direct` target spawn with
+     `target` 0.003, 2 facade frames and `run_headless(targets_live=
+     True)` for 60 steps (K4 with targets once a frame, no plain call;
+     the targets by identity the spawned xy bit for bit, their velocity
+     rows zero), then the median of 3 timed 60-step runs beside phase
+     4's, and a small run against the CPU; at config 4 the demo's
+     `spawn_image_targets` (a target spawn, then a plain spawn, from the
+     camera), 2 warm io frames and 3 timed runs of 20 (K6 with targets
+     once a frame) beside phase 6's; then the facade's helpers: config 2
+     resized to 720x1280 and back, a frame after each, and `step_buffers`
+     on two view buffers.
+Phase 3 also holds K4 with targets at config 2 and K6 with targets at
+config 4 against their plain versions (`torch.equal` on the targets, a
+copy; K4's force within rtol 1e-5) and against K4 and K6 without them,
+and K4 with targets == K8 + K6 with targets bit for bit.
 Phase 6 also runs the demo's vignette blur (`feeds.DEMO_BLUR`) on 3
 config-4 io frames, their screens checked and timed. Phase 3 also holds
 K2's view-only launch (flow_off) in every variant on config 1's and
@@ -202,6 +226,11 @@ KERNELS = {
                            "tendrils_tpu/ops/draw_pallas.py:179"),
     "resolve_view": ("tendrils_tpu_torch/csrc/resolve.cu",
                      "tendrils_tpu/ops/draw_pallas.py:1284"),
+    # Live targets riding the resident sort: K4 and K6 re-stacking them.
+    "gather_reconstruct_targets": ("tendrils_tpu_torch/csrc/gather.cu",
+                                   "tendrils_tpu/ops/gather_pallas.py:481"),
+    "reconstruct_resident_targets": ("tendrils_tpu_torch/csrc/gather.cu",
+                                     "tendrils_tpu/ops/draw_pallas.py:1529"),
 }
 CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
                 "bilinear_gather")
@@ -268,7 +297,7 @@ def l2_flush(kind):
     return flush, ms, set(kernels)
 
 
-def time_calls(fn, reps=REPS, cold=None):
+def time_calls(fn, reps=REPS, cold=None, strict=True):
     """`(device ms, call ms, {kernel: device ms})` of one call of `fn`, each
     over `reps` back-to-back calls after a warm one: the device time of
     the kernels, copies and fills they ran, by `torch.profiler`, summed
@@ -288,7 +317,9 @@ def time_calls(fn, reps=REPS, cold=None):
     traces, and now and then it hands back a trace with none, so each
     trace opens with PAD_LAUNCHES spin kernels, left out by name, twice as
     many at each try; a trace that still fails a check is traced again,
-    and after PROFILE_TRIES the run fails."""
+    and after PROFILE_TRIES the run fails, or, with `strict=False` (plain
+    torch code whose time is reported, not held to a bound), the device
+    ms is None: not measured."""
     from torch.profiler import ProfilerActivity, profile
     flush, _, flush_names = l2_flush(cold) if cold else (None, 0.0, ())
     fn()
@@ -345,6 +376,8 @@ def time_calls(fn, reps=REPS, cold=None):
                  f"{reps} calls: {uneven}" if uneven else "")
               + "; tracing again)")
         time.sleep(1.0)
+    if not strict:
+        return None, call_ms, {}
     fail(f"torch.profiler lost device events in each of {PROFILE_TRIES} "
          f"traces")
 
@@ -483,6 +516,21 @@ def close(name, got, want):
         if not torch.allclose(a, b, rtol=1e-5, atol=1e-6):
             fail(f"{name}: max |d| {err:.3e}")
     return err
+
+
+def equal(name, got, want):
+    """K4's and K6's targets (a copy) and K6's state: `torch.equal`."""
+    if not torch.equal(got, want):
+        fail(f"{name}: {(got != want).sum().item()} values differ")
+
+
+def target_streams(n, seed):
+    """Sorted targets riding a resident draw: xy in the view, a tenth of
+    the rows inert."""
+    rng = np.random.default_rng(100 + seed)
+    t = rng.uniform(-1.0, 1.0, (2, n)).astype(np.float32)
+    t[:, rng.random(n) < 0.1] = -1.0e6
+    return tuple(torch.as_tensor(v, device="cuda") for v in t)
 
 
 def within_channel_max(name, got, want):
@@ -714,6 +762,22 @@ def check_config2_kernels():
         lambda: gather_cuda.gather_reconstruct_plain(*args, **kw),
         56 * n + 8 * texels, 40 * n)
 
+    # K4 with live targets: also reads tx, ty (8 B a row) and writes the
+    # targets (16 B a row). The targets are a copy: equal to the plain
+    # version's; the rest equal to K4's without them.
+    targs = (*args, *target_streams(n, 0))
+    got = gather_cuda.gather_reconstruct_p1(*targs, **kw)
+    want = gather_cuda.gather_reconstruct_plain(*targs, **kw)
+    equal("gather_reconstruct_targets: targets", got[3], want[3])
+    for a, b in zip(got[:3], gather_cuda.gather_reconstruct_p1(*args, **kw)):
+        equal("gather_reconstruct_targets against K4", a, b)
+    rec("gather_reconstruct_targets",
+        close("gather_reconstruct_targets", got[:3], want[:3]),
+        lambda: gather_cuda.gather_reconstruct_p1(*targs, **kw),
+        lambda: gather_cuda.gather_reconstruct_plain(*targs, **kw),
+        80 * n + 8 * texels, 40 * n)
+    del got, want
+
     # K5 at the particles' positions, plus points on and past the edges.
     pos, vs = s["pos"], s["vs"]
     x = ((pos[0] * vs[0]) * 0.5 + 0.5) * w
@@ -838,6 +902,17 @@ def check_config4_kernels():
         lambda: draw_cuda.reconstruct_resident(*args),
         lambda: draw_cuda.reconstruct_resident_plain(*args),
         44 * n, 10 * n)
+    # K6 with live targets: 68 B a row; every output equal.
+    targs = (*args, *target_streams(n, 1))
+    k6t = draw_cuda.reconstruct_resident(*targs)
+    for a, b in zip(k6t, draw_cuda.reconstruct_resident_plain(*targs)):
+        equal("reconstruct_resident_targets", a, b)
+    for a, b in zip(k6t, k6):
+        equal("reconstruct_resident_targets against K6", a, b)
+    rec("reconstruct_resident_targets", 0.0,
+        lambda: draw_cuda.reconstruct_resident(*targs),
+        lambda: draw_cuda.reconstruct_resident_plain(*targs),
+        68 * n, 10 * n)
 
     # K8 from the decayed flow: reads p1 (4 B a row) and the touched
     # texels (2 channels), writes the force (8 B a row).
@@ -852,6 +927,11 @@ def check_config4_kernels():
                                               sl_t, inv_p=inv_p)
     if not all(torch.equal(a, b) for a, b in zip(fused, (k8, *k6))):
         fail("K4 != K8 + K6")
+    fused = gather_cuda.gather_reconstruct_p1(eff, s["p1_s"], *targs[:3],
+                                              sl_t, *targs[4:], inv_p=inv_p)
+    if not all(torch.equal(a, b) for a, b in zip(fused, (k8, *k6t))):
+        fail("K4 != K8 + K6, with targets")
+    del fused
     texels = touched_texels(*p1_coords(s["p1_s"], inv_p, h, w), h, w)
     rec("gather_keyed_p1", err,
         lambda: gather_cuda.bilinear_gather_keyed_p1(
@@ -859,7 +939,8 @@ def check_config4_kernels():
         lambda: gather_cuda.bilinear_gather_keyed_p1_plain(
             eff, s["p1_s"], inv_p=inv_p),
         12 * n + 8 * texels, 20 * n)
-    print("  K4 == K8 + K6 bit for bit")
+    print("  K4 == K8 + K6 bit for bit, without and with targets; the "
+          "targets of K4 and K6 equal to their plain versions'")
 
     # K9 at a pointer frame's samples and at 2 x 262,144 spread samples
     # (`k9_cases`): reads x, y, alpha and 4 payload values (28 B a sample),
@@ -1384,7 +1465,7 @@ def run_config2():
           f"{sec * 1e3:.3f} ms/frame, {eng.config.n / sec:.0f} "
           f"particle-steps/s (median of 3 x {STEPS} steps: {runs} ms/frame); "
           f"card vs CPU particles max |d| {err:.2e}")
-    return eng, launches
+    return eng, launches, sec * 1e3
 
 
 def run_config4():
@@ -1439,7 +1520,7 @@ def run_config4():
           f"[4, {h}, {w}] finite, {sec_blur * 1e3:.3f} ms/frame (3 frames "
           f"after a warm one); "
           f"card vs CPU particles max |d| {err:.2e}")
-    return launches
+    return launches, sec * 1e3
 
 
 def check_launches(label, frames, per_frame, launches, plain):
@@ -1450,7 +1531,8 @@ def check_launches(label, frames, per_frame, launches, plain):
               "gather_reconstruct", "reconstruct_resident", "gather_keyed_p1",
               "splat_points", "pack_g3", "pack_p0_rgba_g2", "reorder_compact",
               "reorder_apply", "splat_view", "splat_rgba_view",
-              "splat_p0_rgba_view", "resolve_view"):
+              "splat_p0_rgba_view", "resolve_view",
+              "gather_reconstruct_targets", "reconstruct_resident_targets"):
         if launches.get(k, 0) != frames * per_frame.get(k, 0):
             fail(f"{label}: {k} launched {launches.get(k, 0)} times, want "
                  f"{frames * per_frame.get(k, 0)} (launches {launches})")
@@ -2480,6 +2562,351 @@ def run_show_frame(eng, headless_ms):
     return launches
 
 
+def camera_grid(i=0):
+    """The synthetic 480x640 camera frame `i` (`feeds.camera_frame`) as
+    the engine grid `f32[4, 480, 640]` the demo spawns from."""
+    from tendrils_tpu_torch.feeds import camera_frame
+    from tendrils_tpu_torch.media import image_to_grid
+    return image_to_grid(camera_frame(i))
+
+
+def image_spawner(shader):
+    """One of the demo's camera spawners (`app/demo.py:110-115`): X
+    flipped."""
+    from tendrils_tpu_torch.spawners import PixelSpawner
+    sp = PixelSpawner(shader=shader)
+    sp.spawn_matrix[0, 0] = -1
+    return sp
+
+
+def spawn_image(eng, sp, grid, target):
+    """The demo's `_spawn_raster` (`app/demo.py:492-510`) from a camera
+    grid: speed 0.3, the pixels and the colour map set, then the spawn."""
+    sp.speed = 0.3
+    sp.set_pixels(grid)
+    eng.set_color_map(grid)
+    sp.spawn(eng, target=target)
+
+
+def spawn_image_targets(eng, sp, grid):
+    """The demo's `spawn_image_targets` (`app/demo.py:517-521`): a target
+    spawn, then a plain spawn, from the camera."""
+    spawn_image(eng, sp, grid, "targets")
+    spawn_image(eng, sp, grid, None)
+
+
+def targets_by_id(sim):
+    return sim.targets[:, torch.argsort(sim.idx)]
+
+
+def check_targets(sim, spawned, label):
+    """The live targets by identity: the spawned xy bit for bit, zeros
+    below (K4's and K6's re-stack)."""
+    got = targets_by_id(sim)
+    if not torch.equal(got[:2], spawned[:2]):
+        fail(f"{label}: {(got[:2] != spawned[:2]).sum().item()} target "
+             "values moved")
+    if got[2:].any():
+        fail(f"{label}: the targets' velocity rows are not zero")
+
+
+def time_spawn(label, fn, rows):
+    """A spawn's device ms and call ms (`time_calls`, 5 calls; plain
+    torch, so a trace that keeps losing events leaves the device ms "not
+    measured")."""
+    ms, call_ms, _ = time_calls(fn, reps=5, strict=False)
+    dev = "not measured" if ms is None else f"{ms:.4f} ms"
+    print(f"  {label} spawn at {rows:,} rows: device {dev}, call "
+          f"{call_ms:.4f} ms")
+    return dev
+
+
+def targets_in_turns(eng, sim, steps, t_sim, rounds=3):
+    """ms/frame of `run_headless` from one state `sim` (no force) with the
+    targets riding and not, in `rounds` alternating turns (on, off, ...):
+    what riding them costs, the state held fixed. Returns the medians
+    `{True: on, False: off}` and the turns' times."""
+    import tendrils_tpu_torch as tt
+    times = {True: [], False: []}
+    for _ in range(rounds):
+        for live in (True, False):
+            start = dataclasses.replace(sim, force=None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tt.run_headless(start, eng.params(), eng.config, eng._view_size,
+                            t_sim, DT, steps, targets_live=live)
+            torch.cuda.synchronize()
+            times[live].append((time.perf_counter() - t0) / steps)
+    return {k: statistics.median(v) for k, v in times.items()}, times
+
+
+def turns_line(med, times):
+    return (f"{med[True] * 1e3:.3f} ms/frame with the targets riding and "
+            f"{med[False] * 1e3:.3f} without, from one state in "
+            f"{len(times[True])} alternating turns (with: "
+            f"{', '.join(f'{t * 1e3:.3f}' for t in times[True])}; "
+            f"without: {', '.join(f'{t * 1e3:.3f}' for t in times[False])})")
+
+
+def run_spawns_config2(headless_ms):
+    """Phase 14 at config 2: the demo's spawners, then live targets through
+    the facade and `run_headless`, timed beside phase 4's figure; the card
+    against the CPU. Returns the launch counts."""
+    import tendrils_tpu_torch as tt
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.spawners import GeometrySpawner, PixelSpawner
+    eng = models.build("1m-flow")
+    n = eng.config.n
+    cuda_lib.reset_counts()
+    eng.frame()
+    eng.frame()
+    grid = camera_grid(0)
+    flow_sp = PixelSpawner(shader="flow-sample")
+    data_sp = PixelSpawner(shader="data-sample")
+    geom = GeometrySpawner(speed=0.005, bias=1e2 / 5e-3)
+    direct, sample = image_spawner("direct"), image_spawner("best-sample")
+    direct.speed, sample.speed = 0.3, 1.0
+    direct.set_pixels(grid)
+    sample.set_pixels(grid)
+    flow_sp.set_pixels(eng.sim.flow)
+    data_sp.set_pixels(eng.sim.particles.reshape(4, eng.config.root_num,
+                                                 eng.config.root_num))
+    spawns = (("flow-sample", lambda: flow_sp.spawn(eng)),
+              ("data-sample", lambda: data_sp.spawn(eng)),
+              ("GeometrySpawner.shuffle()", lambda: geom.shuffle().spawn(
+                  eng)),
+              ("direct (camera)", lambda: direct.spawn(eng)),
+              ("best-sample (camera)", lambda: sample.spawn(eng)))
+    for label, fn in spawns:
+        time_spawn(label, fn, n)
+        k5 = cuda_lib.launches["bilinear_gather"]
+        eng.frame()
+        torch.cuda.synchronize()
+        if cuda_lib.launches["bilinear_gather"] != k5 + K5:
+            fail(f"1m-flow after the {label} spawn: the frame did not "
+                 "gather its force with K5")
+        check_state(eng.sim, f"1m-flow after the {label} spawn")
+
+    eng.state["target"] = 0.003
+    parts = eng.sim.particles.clone()
+    time_spawn("direct target (camera)",
+               lambda: direct.spawn(eng, target="targets"), n)
+    if not eng._targets_live or not torch.equal(eng.sim.particles, parts):
+        fail("1m-flow target spawn: the targets are not live, or the "
+             "particles moved")
+    spawned = targets_by_id(eng.sim).clone()
+    cuda_lib.reset_counts()
+    eng.frame()
+    eng.frame()
+    eng.sim.force = None
+    sim = tt.run_headless(eng.sim, eng.params(), eng.config, eng._view_size,
+                          eng.timer.time, DT, STEPS, targets_live=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launches)
+    per = dict(CONFIG3_OFF, gather_reconstruct_targets=1)
+    del per["gather_reconstruct"]
+    check_launches("1m-flow live targets", 2 + STEPS, per, launches,
+                   dict(cuda_lib.plain_calls))
+    if launches.get("bilinear_gather") != K5:
+        fail(f"1m-flow live targets: launches {launches}")
+    check_targets(sim, spawned, "1m-flow live targets")
+    alive, texels = check_state(sim, "1m-flow live targets")
+    times = []
+    t_sim = eng.timer.time + STEPS * DT
+    for _ in range(3):
+        sim.force = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = tt.run_headless(sim, eng.params(), eng.config, eng._view_size,
+                              t_sim, DT, STEPS, targets_live=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        t_sim += STEPS * DT
+    check_targets(sim, spawned, "1m-flow live targets, timed")
+    check_state(sim, "1m-flow live targets, timed")
+    med, turns = targets_in_turns(eng, sim, STEPS, t_sim)
+    eng.sim, eng.timer.time = sim, t_sim
+    sec = statistics.median(times) / STEPS
+    err = agree_targets_with_plain(grid)
+    print(f"[14] 1m-flow with live targets (target 0.003): 2 frames + "
+          f"{STEPS} run_headless(targets_live=True) steps, launches "
+          f"{launches}, no plain calls; the targets by identity the spawned "
+          f"xy bit for bit, their velocity rows zero; {alive} alive, "
+          f"{texels} flow texels; {sec * 1e3:.3f} ms/frame (median of 3 x "
+          f"{STEPS}: {', '.join(f'{t / STEPS * 1e3:.3f}' for t in times)}) "
+          f"against {headless_ms:.3f} without targets (phase 4); "
+          f"{turns_line(med, turns)}; card vs CPU particles max |d| "
+          f"{err:.2e}, targets equal")
+    return eng, launches
+
+
+def agree_targets_with_plain(grid):
+    """Config 2 with live targets: a small run on the card against the same
+    run on the CPU from one target spawn (made on the CPU), 3 frames; the
+    targets equal by identity on both."""
+    from tendrils_tpu_torch import convert
+    cpu, gpu = spawned_pair((1080, 1920))
+    for eng in (cpu, gpu):
+        eng.state["target"] = 0.003
+    spawn_image(cpu, image_spawner("direct"), grid, "targets")
+    gpu.config, gpu.timer.time = cpu.config, cpu.timer.time
+    gpu.sim = convert.sim_from_numpy(convert.sim_to_numpy(cpu.sim), "cuda")
+    gpu._targets_live = True
+    for _ in range(3):
+        cpu.frame()
+        gpu.frame()
+    if not torch.equal(targets_by_id(cpu.sim),
+                       targets_by_id(gpu.sim).cpu()):
+        fail("1m-flow live targets card vs CPU: the targets differ")
+    return agree(cpu, gpu, "1m-flow live targets")
+
+
+def run_targets_config5(eng, headless_ms):
+    """Phase 14 at config 5 on phase 10's engine (merge off, gather mode
+    3): a direct target spawn from the camera (timed at 16.8M rows), then
+    2 warm steps and 3 timed runs of SEG of `run_headless(targets_live=
+    True)`, beside phase 10's figure without targets."""
+    from tendrils_tpu_torch.ops import cuda_lib
+    import tendrils_tpu_torch as tt
+    with_merge(eng, False)
+    eng.state["target"] = 0.003
+    sp = image_spawner("direct")
+    sp.speed = 0.3
+    sp.set_pixels(camera_grid(0))
+    ms = time_spawn("16m-live-show direct target (camera)",
+                    lambda: sp.spawn(eng, target="targets"), eng.config.n)
+    spawned = targets_by_id(eng.sim).clone()
+    eng.sim.force = None
+    cuda_lib.reset_counts()
+
+    def run(sim, steps, t_sim):
+        return tt.run_headless(sim, eng.params(), eng.config,
+                               eng._view_size, t_sim, DT, steps,
+                               targets_live=True)
+
+    sim = run(eng.sim, 2, eng.timer.time)
+    t_sim = eng.timer.time + 2 * DT
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = run(sim, SEG, t_sim)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / SEG)
+        t_sim += SEG * DT
+    eng.sim, eng.timer.time = sim, t_sim
+    launches = dict(cuda_lib.launches)
+    per = dict(CONFIG3_OFF, gather_reconstruct_targets=1)
+    del per["gather_reconstruct"]
+    per["pack_g3"] = per.pop("pack")
+    check_launches("16m-live-show live targets", 2 + 3 * SEG, per, launches,
+                   dict(cuda_lib.plain_calls))
+    if launches.get("bilinear_gather") != K5:
+        fail(f"16m-live-show live targets: launches {launches}")
+    check_targets(sim, spawned, "16m-live-show live targets")
+    alive, texels = carry_ok(sim, eng.config, "16m-live-show live targets")
+    ab, turns = targets_in_turns(eng, sim, SEG, t_sim)
+    med = statistics.median(times)
+    print(f"[14] 16m-live-show with live targets (gather mode 3, merge off): "
+          f"direct target spawn device {ms}; {2 + 3 * SEG} "
+          f"run_headless(targets_live=True) steps, launches {launches}, no "
+          f"plain calls; the targets by identity the spawned xy bit for "
+          f"bit; {alive} alive, {texels} flow texels; {med * 1e3:.3f} "
+          f"ms/frame (3 x {SEG}: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) against "
+          f"{headless_ms:.3f} without targets (phase 10); "
+          f"{turns_line(ab, turns)}")
+    return launches
+
+
+def run_targets_config4(io_ms):
+    """Phase 14 at config 4: the demo's `spawn_image_targets` from the
+    camera, then the io frame (K6 with the targets): 2 warm frames and 3
+    timed runs of IO_FRAMES, beside phase 6's figure without targets."""
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.feeds import IoFeed
+    from tendrils_tpu_torch.ops import cuda_lib
+    eng = models.build("optical-flow-driven")
+    feed = IoFeed(eng)
+    feed.frame(0)
+    eng.state["target"] = 0.003
+    spawn_image_targets(eng, image_spawner("direct"), camera_grid(1))
+    spawned = targets_by_id(eng.sim).clone()
+    cuda_lib.reset_counts()
+    feed.frame(1)
+    feed.frame(2)
+    frame_i = itertools.count(3)
+    times = [timed_frames(lambda: feed.frame(next(frame_i)), IO_FRAMES)
+             for _ in range(3)]
+    sec = statistics.median(times)
+    frames = 2 + 3 * IO_FRAMES
+    launches = dict(cuda_lib.launches)
+    per = dict(PATH_C_RUNNING, reconstruct_resident_targets=1)
+    del per["reconstruct_resident"]
+    check_launches("optical-flow-driven live targets", frames, per, launches,
+                   dict(cuda_lib.plain_calls))
+    if launches.get("bilinear_gather") != K5:
+        fail(f"optical-flow-driven live targets: launches {launches}")
+    check_targets(eng.sim, spawned, "optical-flow-driven live targets")
+    alive, texels = check_state(eng.sim, "optical-flow-driven live targets")
+    print(f"[14] optical-flow-driven after the demo's spawn_image_targets "
+          f"(a direct target spawn, then a plain one, from the camera; its "
+          f"480x640 grid the colour map): {frames} io frames, launches "
+          f"{launches}, no plain calls; the targets by identity the spawned "
+          f"xy bit for bit; {alive} alive, {texels} flow texels; "
+          f"{sec * 1e3:.3f} ms/frame (median of 3 x {IO_FRAMES}: "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) against "
+          f"{io_ms:.3f} without targets (phase 6)")
+    return launches
+
+
+def run_facade_helpers(eng):
+    """Phase 14: `resize` of config 2's engine to 720x1280 and back, a
+    frame after each; `step_buffers` on a config-2 engine with two view
+    buffers. Returns the launch counts."""
+    import tendrils_tpu_torch as tt
+    from tendrils_tpu_torch.models.configs import _backends
+    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.spawners import spawn_ball
+    cuda_lib.reset_counts()
+    res = eng.config.view_res
+    for view_res in ((720, 1280), res):
+        eng.resize(view_res)
+        if eng.sim.force is not None or eng.sim.flow.any():
+            fail(f"resize to {view_res}: a force or flow left")
+        eng.frame()
+        torch.cuda.synchronize()
+        if tuple(eng.sim.view.shape[-2:]) != view_res:
+            fail(f"resize to {view_res}: view {tuple(eng.sim.view.shape)}")
+        check_state(eng.sim, f"1m-flow resized to {view_res}")
+    ring = tt.Tendrils(tt.EngineConfig(root_num=1024, view_res=res,
+                                       num_view_buffers=2, **_backends()),
+                       device="cuda")
+    ring.setup()
+    spawn_ball(radius=0.6, speed=0.01).spawn(ring)
+    ring.frame()
+    before = ring.sim.view.clone()
+    ring.step_buffers()
+    if not (torch.equal(ring.sim.view[0], before[1])
+            and torch.equal(ring.sim.view[1], before[0])):
+        fail("step_buffers: the ring did not roll")
+    ring.frame()
+    check_state(ring.sim, "1m-flow with 2 view buffers")
+    if not ring.sim.view[1].any():
+        fail("step_buffers: the rolled buffer is empty")
+    launches = dict(cuda_lib.launches)
+    if any(cuda_lib.plain_calls.values()) \
+            or launches.get("bilinear_gather") != 3 * K5:
+        fail(f"facade helpers: launches {launches}, plain calls "
+             f"{dict(cuda_lib.plain_calls)}")
+    print(f"[14] facade helpers: 1m-flow resized to 720x1280 and back, a "
+          f"frame after each (live and finite, K5 after each resize); "
+          f"step_buffers on 2 view buffers rolled the ring; launches "
+          f"{launches}")
+    return launches
+
+
 def lap(laps, name, fn, *args):
     """`fn(*args)`, its wall seconds kept in `laps[name]`."""
     t0 = time.perf_counter()
@@ -2547,13 +2974,13 @@ def main():
           "streams:")
     checks.update(lap(laps, "3 view-only", check_view_only_kernels))
 
-    eng, launches2 = lap(laps, "4 config 2", run_config2)
+    eng, launches2, ms2 = lap(laps, "4 config 2", run_config2)
     names = lap(laps, "5 replay", replay, eng, eng.frame, "1m-flow")
     print(f"[5] 1m-flow frame replayed: {', '.join(names)} equal bit for "
           "bit")
     del eng
     lap(laps, "5 replay io", replay_io)
-    launches4 = lap(laps, "6 config 4", run_config4)
+    launches4, ms4 = lap(laps, "6 config 4", run_config4)
     launches_a = lap(laps, "7 path A", run_path_a)
     launches_bc = lap(laps, "8 paths B, C", run_paths_b_c)
     launches_m2 = lap(laps, "9 merge config 2", run_merge_config2)
@@ -2565,13 +2992,21 @@ def main():
     launches_1 = lap(laps, "12 config 1", run_config1)
     launches_show = lap(laps, "13 show frame", run_show_frame, eng5,
                         headless5)
+    launches_t5 = lap(laps, "14 targets config 5", run_targets_config5,
+                      eng5, headless5)
     del eng5
+    eng2, launches_t2 = lap(laps, "14 spawns, targets config 2",
+                            run_spawns_config2, ms2)
+    launches_t4 = lap(laps, "14 targets config 4", run_targets_config4, ms4)
+    launches_f = lap(laps, "14 facade helpers", run_facade_helpers, eng2)
+    del eng2
     if "jax" in sys.modules:
         fail("the port imported jax")
 
     runs = (launches2, launches4, launches_a, launches_bc, launches_m2,
-            launches_m3, launches_big, launches_1, launches_show)
-    print(f"[14] every phase passed in {time.perf_counter() - t_start:.1f} "
+            launches_m3, launches_big, launches_1, launches_show,
+            launches_t5, launches_t2, launches_t4, launches_f)
+    print(f"[15] every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s; {TRACES['traces']} profiler traces, "
           f"{TRACES['traced again']} of them taken again; seconds by "
           f"phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))

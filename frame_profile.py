@@ -2,6 +2,7 @@
 
     python3 frame_profile.py [--model M] [--frames 20] [--classic]
                              [--color-maps] [--paused] [--merge] [--show]
+                             [--targets]
     python3 frame_profile.py --gathers
     python3 frame_profile.py --k9-k11
 
@@ -21,8 +22,10 @@ respawn before every 10th frame, the cadence of `bench.py`'s config 3) and
 (the classic carried-force frame); `--paused` pauses the timer after the
 warm-up frames (config 4: paused io frames; the others: `frame()` is the
 paused draw); `--merge` sets `merge_reorder=True` (the resident frame's
-merge reorder, K10 and K11, in place of the flat sort). Prints the
-readings of the same frame:
+merge reorder, K10 and K11, in place of the flat sort); `--targets` makes
+a `direct` target spawn from `chip_smoke.py`'s camera frame first
+(`target` 0.003), so the targets ride the resident sort (K4 or K6 with
+targets). Prints the readings of the same frame:
 
   1. wall ms/frame of the plain loop (the end-to-end number);
   2. a `torch.profiler` trace of `--frames` frames: device time by kernel
@@ -317,6 +320,7 @@ def main():
     ap.add_argument("--paused", action="store_true")
     ap.add_argument("--merge", action="store_true")
     ap.add_argument("--show", action="store_true")
+    ap.add_argument("--targets", action="store_true")
     ap.add_argument("--gathers", action="store_true")
     ap.add_argument("--k9-k11", action="store_true")
     args = ap.parse_args()
@@ -336,6 +340,12 @@ def main():
                                      resident_stream=not args.classic,
                                      merge_reorder=args.merge)
     eng.reseed_derived()
+    if args.targets:
+        eng.state["target"] = 0.003
+        sp = chip_smoke.image_spawner("direct")
+        sp.speed = 0.3
+        sp.set_pixels(chip_smoke.camera_grid(0))
+        sp.spawn(eng, target="targets")
     respawn = 10 if args.model == "4m-respawn-stress" else 0
 
     def headless(i):
@@ -369,7 +379,7 @@ def main():
         walls.append((time.perf_counter() - t0) / args.frames * 1e3)
     print(f"{args.model} (classic {args.classic}, colour maps "
           f"{args.color_maps}, paused {args.paused}, merge {args.merge}, "
-          f"show frame {args.show}) on "
+          f"show frame {args.show}, live targets {args.targets}) on "
           f"{torch.cuda.get_device_name(0)}")
     print(f"[1] wall: {statistics.median(walls):.3f} ms/frame (median of 3 "
           f"x {args.frames}: {', '.join(f'{w:.3f}' for w in walls)})")

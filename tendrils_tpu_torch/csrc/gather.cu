@@ -18,7 +18,11 @@
 // blocks) and K6 its reassembly half alone; the resident frame runs them
 // apart when flow is injected between the draw and the gather. All three
 // call the same device functions (common.cuh: bilerp_p1,
-// reconstruct_row), so K4 equals K8 + K6 bit for bit.
+// reconstruct_row), so K4 equals K8 + K6 bit for bit. Once a target spawn
+// has made the targets live, their xy rows ride the draw's sort, and K4
+// and K6 also re-stack them as (tx, ty, 0, 0) (draw_pallas.py:1487-1512,
+// gather_pallas.py:481-550): an instance of each kernel of its own
+// (TARGETS), so the launch without targets is unchanged.
 // K5: CLAMP_TO_EDGE bilinear sampling of a C-channel grid at arbitrary f32
 // texel coords (contract: ops/sample.bilinear_sample). For each pair of
 // channels `interleave_pair_kernel` copies the pair's planes into one
@@ -49,7 +53,11 @@
 //
 // Bound: bytes. K6 reads npx, npy, vl (12 B/row) and writes particles and
 // previous (32 B/row): 44 B x 262,144 rows = 11.5 MB, ~3.4 us at 3.35 TB/s
-// for config 4; it does a few flops per row, far below the f32 rate. K7
+// for config 4; it does a few flops per row, far below the f32 rate. The
+// targets add 8 B read and 16 B written a row to K4 and K6 (68 B a row,
+// ~5.3 us for K6 at config 4). One thread a row, as without them: the
+// loads and stores of a warp are coalesced, and the copy adds no
+// arithmetic. K7
 // reads p1 (4 B a row) and writes one word (4 B a row); K12 reads two
 // coords (8 B) and writes C values a point. The gathers also read the four
 // corner texels of each row; rows arrive sorted by tile (K4, K7, K8), so
@@ -66,29 +74,48 @@ namespace {
 
 using namespace tt;
 
+// The live targets of row i, re-stacked as (tx, ty, 0, 0)
+// (draw_pallas.reconstruct_rows' targ_ref): a copy, equal to the plain
+// version bit for bit.
+__device__ __forceinline__ void restack_targets(
+    int i, int n, const float* __restrict__ tx, const float* __restrict__ ty,
+    float* __restrict__ targ) {
+  targ[i] = tx[i];
+  targ[n + i] = ty[i];
+  targ[2 * n + i] = 0.0f;
+  targ[3 * n + i] = 0.0f;
+}
+
+// K4 and K6 with TARGETS: the same rows, plus the targets that rode the
+// sort (tx, ty) re-stacked into `targ`.
+template <bool TARGETS>
 __global__ void gather_reconstruct_kernel(
     const float* __restrict__ eff, int h, int w, const int* __restrict__ p1w,
     const float* __restrict__ npx, const float* __restrict__ npy,
-    const int* __restrict__ vlw, const float* __restrict__ sl_ptr, int n,
+    const int* __restrict__ vlw, const float* __restrict__ sl_ptr,
+    const float* __restrict__ tx, const float* __restrict__ ty, int n,
     float inv_p, float* __restrict__ force, float* __restrict__ part,
-    float* __restrict__ prev) {
+    float* __restrict__ prev, float* __restrict__ targ) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Bilerp b = bilerp_p1(h, w, p1w[i], inv_p);
   force[i] = bilerp(eff, b);
   force[n + i] = bilerp(eff + (long long)h * w, b);
   reconstruct_row(i, n, sl_ptr[0], npx[i], npy[i], vlw[i], part, prev);
+  if (TARGETS) restack_targets(i, n, tx, ty, targ);
 }
 
-__global__ void reconstruct_kernel(const float* __restrict__ npx,
-                                   const float* __restrict__ npy,
-                                   const int* __restrict__ vlw,
-                                   const float* __restrict__ sl_ptr, int n,
-                                   float* __restrict__ part,
-                                   float* __restrict__ prev) {
+template <bool TARGETS>
+__global__ void reconstruct_kernel(
+    const float* __restrict__ npx, const float* __restrict__ npy,
+    const int* __restrict__ vlw, const float* __restrict__ sl_ptr,
+    const float* __restrict__ tx, const float* __restrict__ ty, int n,
+    float* __restrict__ part, float* __restrict__ prev,
+    float* __restrict__ targ) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   reconstruct_row(i, n, sl_ptr[0], npx[i], npy[i], vlw[i], part, prev);
+  if (TARGETS) restack_targets(i, n, tx, ty, targ);
 }
 
 // K7, K8 and K12: a block of KEYED_THREADS threads takes KEYED_THREADS x r
@@ -235,28 +262,45 @@ __global__ void __launch_bounds__(KEYED_THREADS, 2)
 
 }  // namespace
 
+// K4 and K6: `tx`, `ty` and `targets` are all null (no targets ride) or
+// all given (the TARGETS instance).
 extern "C" int tt_gather_reconstruct(const float* eff, int h, int w,
                                      const int* p1, const float* npx,
                                      const float* npy, const int* vl,
-                                     const float* sl, int n, float inv_p,
+                                     const float* sl, const float* tx,
+                                     const float* ty, int n, float inv_p,
                                      float* force, float* particles,
-                                     float* previous, void* stream) {
+                                     float* previous, float* targets,
+                                     void* stream) {
   if (n > 0) {
-    gather_reconstruct_kernel<<<blocks_for(n), THREADS, 0,
-                                (cudaStream_t)stream>>>(
-        eff, h, w, p1, npx, npy, vl, sl, n, inv_p, force, particles,
-        previous);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (targets) {
+      gather_reconstruct_kernel<true><<<blocks_for(n), THREADS, 0, s>>>(
+          eff, h, w, p1, npx, npy, vl, sl, tx, ty, n, inv_p, force,
+          particles, previous, targets);
+    } else {
+      gather_reconstruct_kernel<false><<<blocks_for(n), THREADS, 0, s>>>(
+          eff, h, w, p1, npx, npy, vl, sl, tx, ty, n, inv_p, force,
+          particles, previous, targets);
+    }
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int tt_reconstruct(const float* npx, const float* npy,
-                              const int* vl, const float* sl, int n,
+                              const int* vl, const float* sl,
+                              const float* tx, const float* ty, int n,
                               float* particles, float* previous,
-                              void* stream) {
+                              float* targets, void* stream) {
   if (n > 0) {
-    reconstruct_kernel<<<blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        npx, npy, vl, sl, n, particles, previous);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (targets) {
+      reconstruct_kernel<true><<<blocks_for(n), THREADS, 0, s>>>(
+          npx, npy, vl, sl, tx, ty, n, particles, previous, targets);
+    } else {
+      reconstruct_kernel<false><<<blocks_for(n), THREADS, 0, s>>>(
+          npx, npy, vl, sl, tx, ty, n, particles, previous, targets);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,11 @@ defaults with `flow_levels=1`, `flow_res=None`). Per frame:
 The resident frame (`resident_stream=True`, the default) lets the state
 ride the draw's sort: the next force's gather and the state reassembly
 run in one pass (K4), and the sorted order becomes the next frame's row
-order (`sim.idx`). With `merge_reorder=True` it restores that order by
-merging the rows whose key changed (K10, K11; `ops/reorder_cuda.py`)
-against the carry `sim.sort_key` / `sim.sort_hist`, instead of sorting
-all N rows. The classic frame (`resident_stream=False`) and the
+order (`sim.idx`); once a target spawn has run, the targets ride with
+the positions (K4 and K6 re-stack them). With `merge_reorder=True` it
+restores that order by merging the rows whose key changed (K10, K11;
+`ops/reorder_cuda.py`) against the carry `sim.sort_key` /
+`sim.sort_hist`, instead of sorting all N rows. The classic frame (`resident_stream=False`) and the
 paused draw (`Tendrils.draw`) keep the row order: the draw sends the exact
 p0 and rgba8 colour streams, and the next force is gathered at the sorted
 p1 (K7, packed q15) and un-sorted by row id (`force_from_aux`). A textured
@@ -266,13 +267,17 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     permuted into the sorted row order (`sim.idx` tracks identity).
     `previous` is reconstructed as pos - vel for live rows, its velocity
     half as the current velocity (the reference package's documented
-    deviation). With `want_force` the next step's force is gathered in the
-    same pass that rebuilds the state (K4), from the flow decayed to
-    `read_time`, and set on `sim.force`; without it the state is rebuilt
-    alone (K6) and the caller gathers the force once it has edited the
-    flow (`force_from_aux`).
+    deviation, read only by the best-sample target-spawn scorers). With
+    `targets_live` (a target spawn ran) the targets' xy rows ride the sort
+    too and come back re-stacked as `(tx, ty, 0, 0)`; without it the
+    targets pass through untouched. With `want_force` the next step's
+    force is gathered in the same pass that rebuilds the state (K4), from
+    the flow decayed to `read_time`, and set on `sim.force`; without it
+    the state is rebuilt alone (K6) and the caller gathers the force once
+    it has edited the flow (`force_from_aux`).
 
-    Otherwise the draw keeps the row order and sends the exact p0 stream;
+    Otherwise the draw keeps the row order, and so never moves the
+    targets, and sends the exact p0 stream;
     with `want_aux` it carries the row ids (gather mode 1) for the force
     gather. A 1x1 colour map on the resident frame is four scalars for
     the splat; every other draw samples the map per particle
@@ -303,8 +308,6 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     if want_force and not resident:
         raise ValueError("want_force requires the resident draw "
                          "(resident=True with want_aux)")
-    if resident and targets_live:
-        raise not_ported("live targets riding the sort", 7)
     pos = sim.particles[:2]
     vel = sim.particles[2:]
     prev_pos = sim.previous[:2]
@@ -334,8 +337,13 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
         view0 = render.fade_fill(view0 * (1.0 - params["autoClearView"]),
                                  params["fadeColor"] * params["autoFade"])
     idx = ride = None
+    targets_live = resident and targets_live
     if resident:
+        # The exact positions ride the sort; live targets ride beside them,
+        # inert ones do not (the buffer passes through untouched).
         idx, ride = sim.idx, [sim.particles[0], sim.particles[1]]
+        if targets_live:
+            ride += [sim.targets[0], sim.targets[1]]
     elif want_aux:
         # The aux id is the ROW number: the force un-sorts to row order.
         idx = torch.arange(pos.shape[1], dtype=torch.int32,
@@ -368,20 +376,23 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
             return new_sim
         return (new_sim, aux, eff) if want_eff else (new_sim, aux)
     sl = torch.clamp(params["speedLimit"], min=1e-12)
+    # ride_s = [x, y, (tx, ty,) vl]: the sorted velocity words last.
+    targ = ride_s[2:4] if targets_live else ()
     force = None
     if want_force:
         if read_time is None:
             raise ValueError("want_force needs read_time")
         if eff is None:
             eff = _decayed(new_flow, read_time, params)
-        force, particles, previous = gather_reconstruct_p1(
-            eff.contiguous(), aux[1], ride_s[0], ride_s[1], ride_s[2], sl,
-            inv_p=1.0 / pos_scale_for((h, w)))
+        force, *rec = gather_reconstruct_p1(
+            eff.contiguous(), aux[1], ride_s[0], ride_s[1], ride_s[-1], sl,
+            *targ, inv_p=1.0 / pos_scale_for((h, w)))
     else:
-        particles, previous = reconstruct_resident(ride_s[0], ride_s[1],
-                                                   ride_s[2], sl)
+        rec = reconstruct_resident(ride_s[0], ride_s[1], ride_s[-1], sl,
+                                   *targ)
     new_sim = dataclasses.replace(
-        sim, particles=particles, previous=previous, idx=aux[0],
+        sim, particles=rec[0], previous=rec[1],
+        targets=rec[2] if targets_live else sim.targets, idx=aux[0],
         flow=new_flow, view=view, force=force)
     if reorder is not None:
         if carry is None:
@@ -796,17 +807,25 @@ class Tendrils:
 
     def spawn_shader(self, op, target=None):
         """GPU-respawn equivalent — ref `src/index.js:432-457`.
-        `op(prev_particles, engine) -> f32[4, N]`; rotates the ping-pong
-        and replaces the current state."""
+
+        `op(prev_particles, engine) -> f32[4, N]`. With no `target`,
+        rotates the ping-pong and replaces the current state (reading the
+        pre-spawn current, `src/particles.js:128-143`) and drops the
+        carried force; with `target="targets"` writes the targets buffer
+        without rotating (reading `previous`) and marks the targets live,
+        so that from now on they ride the resident draw's sort."""
         self.timer.tick()
-        if target == "targets":
-            raise not_ported("target spawns (live targets)", 7)
-        if target is not None:
+        if target is None:
+            new = op(self.sim.particles, self)
+            self.sim = dataclasses.replace(self.sim, particles=new,
+                                           previous=self.sim.particles,
+                                           force=None)
+        elif target == "targets":
+            new = op(self.sim.previous, self)
+            self.sim = dataclasses.replace(self.sim, targets=new)
+            self._targets_live = True
+        else:
             raise ValueError(f"unknown spawn target: {target}")
-        new = op(self.sim.particles, self)
-        self.sim = dataclasses.replace(self.sim, particles=new,
-                                       previous=self.sim.particles,
-                                       force=None)
         return self
 
     # -- flow injection (flow lines, optical flow)
@@ -919,6 +938,63 @@ class Tendrils:
             self.config = dataclasses.replace(
                 self.config, color_map_res=tuple(color_map.shape[1:]))
         self.sim = dataclasses.replace(self.sim, color_map=color_map)
+        return self
+
+    # -- view helpers (ref src/index.js:342-391)
+
+    def draw_fade(self):
+        """Fade the current view buffer towards `fadeColor` (ref
+        `src/index.js:342-356`)."""
+        p = self.params()
+        view0 = render.fade_fill(self.sim.view[0], p["fadeColor"])
+        self.sim = dataclasses.replace(
+            self.sim, view=torch.cat([view0[None], self.sim.view[1:]]))
+        return self
+
+    def copy_buffer(self, index=0):
+        """A view buffer's contents as the screen output — ref
+        `src/index.js:370-383` (`copyBuffer` blits buffer `index` into the
+        bound target). Returns `f32[4, H, W]` (zeros past the ring)."""
+        if index < self.config.num_view_buffers:
+            return self.sim.view[index]
+        return torch.zeros_like(self.sim.view[0])
+
+    def draw_buffer(self, index=0):
+        """`drawBuffer`: copy a buffer to the screen, then rotate the ring
+        — ref `src/index.js:358-367`. Returns the screen image."""
+        out = self.copy_buffer(index)
+        self.step_buffers()
+        return out
+
+    def step_buffers(self):
+        """Ring-rotate the view buffers — ref `src/index.js:385-391` +
+        `src/utils/index.js:1-7`."""
+        if self.config.num_view_buffers > 1:
+            self.sim = dataclasses.replace(
+                self.sim, view=torch.roll(self.sim.view, 1, dims=0))
+        return self
+
+    def resize(self, view_res, flow_res=None):
+        """Reallocate the view and flow grids — ref `src/index.js:393-408`
+        (their content is not kept, as an FBO reshape keeps none). The
+        particles stay; the carried force and the merge carry go, and the
+        carry is re-seeded for the new tile count (`reseed_derived`). The
+        kernels read the padded dims and tile count from the grids' shapes
+        at every call, and their kept scratch is keyed by shape."""
+        self.config = dataclasses.replace(self.config,
+                                          view_res=tuple(view_res),
+                                          flow_res=flow_res)
+        self._setup_static()
+        cfg = self.config
+        h, w = cfg.view_res
+        fh, fw = cfg.flow_shape
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self.sim = dataclasses.replace(
+            self.sim, view=torch.zeros((cfg.num_view_buffers, 4, h, w),
+                                       **f32),
+            flow=torch.zeros((4, fh, fw), **f32),
+            force=None, sort_key=None, sort_hist=None)
+        self.reseed_derived()
         return self
 
     @property

@@ -14,6 +14,11 @@ def pos_to_uv(pos):
     return pos * 0.5 + 0.5
 
 
+def uv_to_pos(uv):
+    """UV [0,1] -> NDC [-1,1]. Ref `src/map/uv-to-pos.glsl`."""
+    return uv * 2.0 - 1.0
+
+
 def aspect(size, scale):
     """`scale / size` — ref `src/utils/aspect.js:6-7` (host numpy)."""
     size = np.asarray(size, np.float32)

@@ -50,10 +50,10 @@ _SIGNATURES = {
     "tt_splat_convert": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     "tt_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tt_resolve_view": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "tt_gather_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _P,
-                              _P, _P, _P],
+    "tt_gather_reconstruct": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _F, _P, _P, _P, _P, _P],
     "tt_bilinear_gather": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
-    "tt_reconstruct": [_P, _P, _P, _P, _I, _P, _P, _P],
+    "tt_reconstruct": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "tt_gather_keyed_p1": [_P, _I, _I, _I, _P, _I, _I, _I, _F, _P, _P],
     "tt_splat_points": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                         _P, _P],

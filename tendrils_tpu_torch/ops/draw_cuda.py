@@ -38,7 +38,10 @@ the sort; 2 the tile alone, the ids a stream of their own:
                                  channels;
   K6 `reconstruct_resident` (csrc/gather.cu) per sorted row: the state
                                  reassembly alone, for frames that gather
-                                 the force after editing the flow.
+                                 the force after editing the flow; with
+                                 live targets riding the sort, also the
+                                 targets re-stacked
+                                 (`reconstruct_resident_targets`).
 
 Two stream layouts reach the splat. The resident frame (a step just before
 the draw) derives p0 in the splat from p1 and the velocity (`derive_p0`),
@@ -619,12 +622,14 @@ def _draw_scal(speed_limit, time, flow_width, line_width, speed_alpha,
 def _hide_id_bits(ride, idx):
     """Gather mode 3: the ids' bits above PACK_IDX_BITS into the low
     mantissa bits of the riding positions (x: 2, y: 3;
-    `draw_pallas.py:1175-1183`), through an int32 view of their bits."""
+    `draw_pallas.py:1175-1183`), through an int32 view of their bits.
+    Riding targets (`ride[2:]`) pass as they are: the id bits go into, and
+    come back out of, the positions alone."""
     hi = idx >> PACK_IDX_BITS
     xi = ride[0].view(_I32)
     yi = ride[1].view(_I32)
     return [((xi & ~3) | (hi & 3)).view(_F32),
-            ((yi & ~7) | (hi >> 2)).view(_F32)]
+            ((yi & ~7) | (hi >> 2)).view(_F32), *ride[2:]]
 
 
 def _read_ok(ok):
@@ -658,9 +663,11 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
 
     `words`: K1's `(keym, p1, vl, p0, rgba)`, p0 and rgba None when not
     emitted. `ride`: the exact f32 positions `[x, y]` riding the sort
-    (resident stream), or None; in gather mode 3 they carry the ids' high
-    bits, which are read back and cleared after the sort (the cleaned
-    positions are what every later stage sees). In gather mode 1 keys are
+    (resident stream), with the live targets `[tx, ty]` after them, or
+    None; in gather mode 3 the positions carry the ids' high bits, which
+    are read back and cleared after the sort (the cleaned positions are
+    what every later stage sees); the targets cross the sort bit for bit.
+    In gather mode 1 keys are
     unique, so the order is fully determined; in modes 0, 2 and 3 only the
     key order is (mode 3 keys tie where ids share their low bits and tile;
     the deposits are sums and the ids follow their rows). With `ride`, the
@@ -671,8 +678,10 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
     `flow_off`: the view's channels alone (K2's view-only launch).
     Returns `(accum, aux, ride_sorted, carry)`: aux = `(idx_s, p1_s)`, the
     sorted row ids (from the key in modes 1 and 3, sorted along in mode 2)
-    and p1 words (None in mode 0), ride_sorted = `[x_s, y_s, vl_s]` (None
-    without `ride`), carry None without `reorder`."""
+    and p1 words (None in mode 0), ride_sorted = the sorted ride streams
+    with the sorted velocity words last, `[x_s, y_s, (tx_s, ty_s,) vl_s]`
+    as the JAX function returns them (None without `ride`), carry None
+    without `reorder`."""
     h, w = grid_hw
     keym, p1, vl, p0, rgba = words
     carry = None
@@ -697,7 +706,7 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
         x1q, y1q = _qpos((x_s * scal[30] * 0.5 + 0.5) * w,
                          (y_s * scal[31] * 0.5 + 0.5) * h, grid_hw, pscale)
         p1_s = y1q * (HALF + 1) + x1q
-        ride_s = [x_s, y_s, vl_s]
+        ride_s = [x_s, y_s, *(r[perm] for r in ride[2:]), vl_s]
     accum = splat(scal, keym_s, p1_s, vl_s, idx_bits=_idx_bits(gather),
                   samples=samples, grid_hw=grid_hw, pscale=pscale, p0=p0_s,
                   rgba=rgba_s, flow_off=flow_off)
@@ -728,7 +737,8 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
     into the splat; otherwise `mapped` (`f32[4, N]`) and `pos_ndc` are
     packed to rgba8. `idx` (aux streams for the force gather, bounded by
     `idx_bound`) selects gather mode 1, 2 or 3 (`gather_mode`) and
-    `ride=[x, y]` the resident stream. `reorder=(prev_key, prev_hist)`
+    `ride=[x, y]` or, with live targets, `[x, y, tx, ty]` the resident
+    stream. `reorder=(prev_key, prev_hist)`
     (resident frames): the merge reorder's carry, used where
     `reorder_cuda.merge_eligible` admits the stream. `flow_off` (with
     `raw_accum`, as the JAX function asserts) drops the flow channels: the
@@ -746,8 +756,9 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
         raise ValueError("give exactly one of mapped and mapped_scalar")
     if mapped_scalar is not None and not derive_p0:
         raise ValueError("mapped_scalar requires derive_p0")
-    if ride is not None and len(ride) != 2:
-        raise not_ported("live targets riding the sort", 7)
+    if ride is not None and len(ride) not in (2, 4):
+        raise ValueError("ride holds the positions [x, y] and optionally "
+                         "the targets [tx, ty]")
     if flow_off and not raw_accum:
         raise ValueError("flow channel pruning requires the kernel resolve "
                          "(raw_accum)")
@@ -959,45 +970,72 @@ def resolve_fused(accum, flow, view, fade_rgba, auto_clear, time, read_time,
 # --- K6 reconstruct ----------------------------------------------------------
 
 
-def reconstruct_resident(npx, npy, vl, speed_limit):
+def targets_counter(name, tx):
+    """The counter a launch of K4 or K6 adds to: its own name, with
+    `_targets` appended when the targets ride (`tx` given)."""
+    return name if tx is None else f"{name}_targets"
+
+
+def check_targets(tx, ty, m):
+    """Raise unless both or neither of `tx`, `ty` are given, each a
+    contiguous `f32[m]`."""
+    if (tx is None) != (ty is None):
+        raise ValueError("give both tx and ty, or neither")
+    if tx is not None:
+        cuda_lib.check(tx, "tx", _F32, (m,))
+        cuda_lib.check(ty, "ty", _F32, (m,))
+
+
+def reconstruct_resident(npx, npy, vl, speed_limit, tx=None, ty=None):
     """K6: the resident frame's state reassembly from the sorted ride
     streams, without the gather (for frames that edit the flow before
     the force is gathered): `npx`, `npy` `f32[M]` exact positions, `vl`
-    `i32[M]` q15 velocity words, `speed_limit` the (clamped) speedLimit.
-    Returns `(particles, previous)` `f32[4, M]`. (The JAX function also
-    re-stacks riding targets; the port does not ride live targets yet.)"""
+    `i32[M]` q15 velocity words, `speed_limit` the (clamped) speedLimit,
+    and `tx`, `ty` `f32[M]` the live targets when they rode the sort.
+    Returns `(particles, previous[, targets])` `f32[4, M]`, the targets
+    re-stacked as `(tx, ty, 0, 0)` (`draw_pallas.py:1487-1512`). A launch
+    with the targets counts as `reconstruct_resident_targets`."""
     sl = torch.as_tensor(speed_limit, dtype=_F32,
                          device=npx.device).reshape(1)
-    if cuda_lib.on_cpu(npx, npy, vl, sl):
-        return reconstruct_resident_plain(npx, npy, vl, sl)
+    targ = () if tx is None else (tx, ty)
+    if cuda_lib.on_cpu(npx, npy, vl, sl, *targ):
+        return reconstruct_resident_plain(npx, npy, vl, sl, tx, ty)
     m = npx.shape[0]
     cuda_lib.check(npx, "npx", _F32, (m,))
     cuda_lib.check(npy, "npy", _F32, (m,))
     cuda_lib.check(vl, "vl", _I32, (m,))
-    particles = torch.empty((4, m), dtype=_F32, device=npx.device)
-    previous = torch.empty((4, m), dtype=_F32, device=npx.device)
-    cuda_lib.launch("tt_reconstruct", "reconstruct_resident", npx, npy, vl,
-                    sl, m, particles, previous)
-    return particles, previous
+    check_targets(tx, ty, m)
+    out = [torch.empty((4, m), dtype=_F32, device=npx.device)
+           for _ in range(2 if tx is None else 3)]
+    cuda_lib.launch("tt_reconstruct",
+                    targets_counter("reconstruct_resident", tx), npx, npy,
+                    vl, sl, tx, ty, m, out[0], out[1],
+                    out[2] if len(out) == 3 else None)
+    return tuple(out)
 
 
-def reconstruct_resident_plain(npx, npy, vl, speed_limit):
+def reconstruct_resident_plain(npx, npy, vl, speed_limit, tx=None, ty=None):
     """Plain version of K6 (`reconstruct_rows`)."""
-    cuda_lib.plain_calls["reconstruct_resident"] += 1
-    return reconstruct_rows(speed_limit, npx, npy, vl)
+    cuda_lib.plain_calls[targets_counter("reconstruct_resident", tx)] += 1
+    return reconstruct_rows(speed_limit, npx, npy, vl, tx, ty)
 
 
-def reconstruct_rows(sl, npx, npy, vl):
+def reconstruct_rows(sl, npx, npy, vl, tx=None, ty=None):
     """Resident-stream reassembly (plain; K4's and K6's): un-quantise the
-    q15 velocity word, prev = pos - vel for live rows. Returns
-    `(particles, previous)` `f32[4, M]`."""
+    q15 velocity word, prev = pos - vel for live rows, and the riding
+    targets re-stacked as `(tx, ty, 0, 0)` (the JAX `reconstruct_rows`).
+    Returns `(particles, previous[, targets])` `f32[4, M]`."""
     vel_u = vl & ((1 << 30) - 1)
     nvx = _unq15(vel_u & HALF) * sl
     nvy = _unq15(vel_u >> 15) * sl
     alive = (npx != INERT) | (npy != INERT)
-    return (torch.stack([npx, npy, nvx, nvy]),
-            torch.stack([torch.where(alive, npx - nvx, npx),
-                         torch.where(alive, npy - nvy, npy), nvx, nvy]))
+    out = (torch.stack([npx, npy, nvx, nvy]),
+           torch.stack([torch.where(alive, npx - nvx, npx),
+                        torch.where(alive, npy - nvy, npy), nvx, nvy]))
+    if tx is None:
+        return out
+    zeros = torch.zeros_like(tx)
+    return (*out, torch.stack([tx, ty, zeros, zeros]))
 
 
 def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,

@@ -4,7 +4,8 @@ The port of `tendrils_tpu/ops/gather_pallas.py` for the slice:
 
   K4 `gather_reconstruct_p1` (csrc/gather.cu) per sorted row: the next
       step's force sampled at the packed p1, plus the resident-stream
-      state reassembly (`draw_cuda.reconstruct_rows`);
+      state reassembly (`draw_cuda.reconstruct_rows`) and, with live
+      targets riding the sort, the targets re-stacked;
   K5 `bilinear_gather`       (csrc/gather.cu) per point: CLAMP_TO_EDGE
       bilinear sampling at arbitrary pixel coords (`sample.bilinear_sample`
       is its plain version), each pair of channels interleaved into one
@@ -27,7 +28,7 @@ precomputed by the draw) need no keys here.
 import torch
 
 from . import cuda_lib, sample
-from .draw_cuda import reconstruct_rows
+from .draw_cuda import check_targets, reconstruct_rows, targets_counter
 from .tile_geom import HALF, PAD_LO_H, PAD_LO_W
 
 _F32 = torch.float32
@@ -94,22 +95,26 @@ def bilinear_gather_plain(grid, x, y):
     return sample.bilinear_sample(grid, x, y)
 
 
-def gather_reconstruct_p1(grid, p1_packed, npx, npy, vl, speed_limit, *,
-                          inv_p):
+def gather_reconstruct_p1(grid, p1_packed, npx, npy, vl, speed_limit,
+                          tx=None, ty=None, *, inv_p):
     """K4: the resident frame's tail in one pass over the sorted streams.
 
     `grid`: the decayed flow `f32[2, H, W]` (content layout); `p1_packed`:
     `i32[M]` fixed-point p1 words at `1/inv_p` px; `npx`, `npy`: `f32[M]`
     exact sorted positions; `vl`: `i32[M]` q15 velocity words;
-    `speed_limit`: the (clamped) speedLimit. Returns `(force f32[2, M],
-    particles f32[4, M], previous f32[4, M])` in sorted (= new row) order.
-    (The JAX function also takes the draw's tile keys and optional targets;
-    the port needs no keys and does not ride live targets yet.)"""
+    `speed_limit`: the (clamped) speedLimit; `tx`, `ty`: `f32[M]` the live
+    targets when they rode the sort. Returns `(force f32[2, M], particles
+    f32[4, M], previous f32[4, M][, targets f32[4, M]])` in sorted (= new
+    row) order, the targets re-stacked as `(tx, ty, 0, 0)`
+    (`gather_pallas.py:481-550`). A launch with the targets counts as
+    `gather_reconstruct_targets`. (The JAX function also takes the draw's
+    tile keys; the port needs none.)"""
     sl = torch.as_tensor(speed_limit, dtype=_F32,
                          device=grid.device).reshape(1)
-    if cuda_lib.on_cpu(grid, p1_packed, npx, npy, vl, sl):
+    targ = () if tx is None else (tx, ty)
+    if cuda_lib.on_cpu(grid, p1_packed, npx, npy, vl, sl, *targ):
         return gather_reconstruct_plain(grid, p1_packed, npx, npy, vl, sl,
-                                        inv_p=inv_p)
+                                        tx, ty, inv_p=inv_p)
     _, h, w = grid.shape
     m = p1_packed.shape[0]
     cuda_lib.check(grid, "grid", _F32, (2, h, w))
@@ -117,22 +122,24 @@ def gather_reconstruct_p1(grid, p1_packed, npx, npy, vl, speed_limit, *,
     cuda_lib.check(npx, "npx", _F32, (m,))
     cuda_lib.check(npy, "npy", _F32, (m,))
     cuda_lib.check(vl, "vl", _I32, (m,))
+    check_targets(tx, ty, m)
     force = torch.empty((2, m), dtype=_F32, device=grid.device)
-    particles = torch.empty((4, m), dtype=_F32, device=grid.device)
-    previous = torch.empty((4, m), dtype=_F32, device=grid.device)
-    cuda_lib.launch("tt_gather_reconstruct", "gather_reconstruct", grid, h,
-                    w, p1_packed, npx, npy, vl, sl, m, float(inv_p), force,
-                    particles, previous)
-    return force, particles, previous
+    rec = [torch.empty((4, m), dtype=_F32, device=grid.device)
+           for _ in range(2 if tx is None else 3)]
+    cuda_lib.launch("tt_gather_reconstruct",
+                    targets_counter("gather_reconstruct", tx), grid, h, w,
+                    p1_packed, npx, npy, vl, sl, tx, ty, m, float(inv_p),
+                    force, rec[0], rec[1], rec[2] if len(rec) == 3 else None)
+    return (force, *rec)
 
 
-def gather_reconstruct_plain(grid, p1_packed, npx, npy, vl, speed_limit, *,
-                             inv_p):
+def gather_reconstruct_plain(grid, p1_packed, npx, npy, vl, speed_limit,
+                             tx=None, ty=None, *, inv_p):
     """Plain version of K4: the gather half (`_gather_p1`), then the
     reassembly (`reconstruct_rows`)."""
-    cuda_lib.plain_calls["gather_reconstruct"] += 1
+    cuda_lib.plain_calls[targets_counter("gather_reconstruct", tx)] += 1
     return (_gather_p1(grid, p1_packed, inv_p),
-            *reconstruct_rows(speed_limit, npx, npy, vl))
+            *reconstruct_rows(speed_limit, npx, npy, vl, tx, ty))
 
 
 def _gather_p1(grid, p1_packed, inv_p):

@@ -113,13 +113,7 @@ def test_facades_with_one_seed_draw_the_same_numbers():
 def test_unported_branches_raise():
     cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128))
     eng = tengine.Tendrils(cfg, device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eng.spawn_shader(lambda p, e: p, target="targets")
-    # Live targets riding the resident sort, the sharded draw.
-    with pytest.raises(NotImplementedError, match="live targets.*item 7"):
-        tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
-                         want_aux=True, resident=True, stepped=True,
-                         fast_resolve=True, read_time=1.0, want_force=True)
+    # The sharded draw.
     with pytest.raises(NotImplementedError, match="sharded.*item 12"):
         tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
                          axis_name="p")
