@@ -108,7 +108,25 @@ Phases (each prints a line; any failure exits non-zero before the result):
      camera), 2 warm io frames and 3 timed runs of 20 (K6 with targets
      once a frame) beside phase 6's; then the facade's helpers: config 2
      resized to 720x1280 and back, a frame after each, and `step_buffers`
-     on two view buffers.
+     on two view buffers;
+ 15. the demo application (`app.TendrilsDemo`) at the CLI's defaults
+     (720x1280, quality 0: 262,144 particles, `DEMO_CLI`): (a) with a WAV
+     track playing (`animate=true`: the track timeline and triggers run),
+     the synthetic 480x640 camera and 4 pointers every frame, each of the
+     41 presets applied and 3 frames rendered, each leaving a finite
+     state, live particles (but where the track timeline's `reset` has
+     just emptied the sim) and a finite [4, 720, 1280] screen; (b)
+     `render()` timed for `Flow` and `Pissarides`, median of 3 x 20, at
+     quality 0 and quality 2 (4,194,304 particles, gather mode 3), beside
+     phase 6's io frame; the launch counts of (a) and (b), every kernel
+     of `DEMO_PATH` launched, no plain call; (c) the CLI in a subprocess
+     (`python -m tendrils_tpu_torch --preset Flow --frames 30 --every
+     10`: 3 PNGs of 720x1280, `final.ckpt.npz`, its JSON line), then
+     resumed from that checkpoint for one frame; (d) 5 frames of `Flow`,
+     a checkpoint, 3 frames, against a fresh demo that loads the
+     checkpoint and renders the same 3: equal bit for bit, or particles
+     by identity within atol 1e-4, the first forces' difference (K5
+     re-gathered against K4's carried) printed.
 Phase 3 also holds K4 with targets at config 2 and K6 with targets at
 config 4 against their plain versions (`torch.equal` on the targets, a
 copy; K4's force within rtol 1e-5) and against K4 and K6 without them,
@@ -145,8 +163,10 @@ also on 4M-row synthetic merges at config 3's tiles (churn at n/8, at
 n/8 + 1 with `ok` false, and a tenth of the rows into one tile), with
 the boolean-mask selection as K10's yardstick and the flat `torch.sort`
 printed beside the whole merge, and K1 in gather modes 3 and 2 against
-their plain versions. The last three lines are the card, the per-kernel
-JSON and the result JSON.
+their plain versions, and K1 in gather mode 3 with rgba8 colours
+(`pack_rgba_g3`, the demo's quality 2) at 4,194,304 rows and 720x1280,
+with K2's rgba8 variant on its stream. The last three lines are the
+card, the per-kernel JSON and the result JSON.
 """
 
 import collections
@@ -218,6 +238,10 @@ KERNELS = {
                 "tendrils_tpu/ops/draw_pallas.py:758"),
     "pack_p0_rgba_g2": ("tendrils_tpu_torch/csrc/pack.cu",
                         "tendrils_tpu/ops/draw_pallas.py:758"),
+    # The demo's resident frame at quality 2 (4,194,304 rows, rgba8
+    # colours): K1 with key_recon and rgba8 in gather mode 3.
+    "pack_rgba_g3": ("tendrils_tpu_torch/csrc/pack.cu",
+                     "tendrils_tpu/ops/draw_pallas.py:758"),
     # flow_off (config 1): K2's view-only launch, resident and classic, and
     # K3's view-only variant.
     "splat_view": ("tendrils_tpu_torch/csrc/splat.cu",
@@ -272,6 +296,23 @@ SHOW_BOKEH = (3.0, 40.0)  # config 5's show frame (`bench.py:352-378`)
 # values near 1) would read two orders over.
 BOKEH_F32_MAX = 1e-5
 SEG = 10  # headless steps of a config-3 segment and a config-5 timed run
+# Phase 15, the demo at the CLI's defaults (`tendrils_tpu/__main__.py:24,
+# 56-58`): 720x1280, quality 0 (root 512, 262,144 particles), the engine
+# arguments below.
+DEMO_RES = (720, 1280)
+DEMO_ROOT = 512
+DEMO_CLI = dict(flow_samples=2, flow_rows=1, view_samples=2)
+DEMO_FRAMES = 3  # frames of each preset in phase 15 (a)
+DEMO_POINTERS = 4
+DEMO_TIMED = ("Flow", "Pissarides")  # presets timed in phase 15 (b)
+# The demo frame's kernels with a camera and pointers every frame: the
+# resident draw with rgba8 colours (the audio and camera colour maps), K3
+# (or the XLA tail at line widths over KMAX_WIDTH), K6 with the targets
+# (live after every restart) and K8 after the flow edits, K9 for the
+# pointers, K5 after each spawn; at quality 2, K1 in gather mode 3.
+DEMO_PATH = ("pack_rgba", "splat_rgba", "resolve",
+             "reconstruct_resident_targets", "gather_keyed_p1",
+             "splat_points", "bilinear_gather", "pack_rgba_g3")
 
 
 def fail(msg):
@@ -1876,7 +1917,11 @@ def check_reorder_synthetic(n, n_tiles, idx_bits):
 def check_gather_mode_packs(out):
     """K1 in gather mode 3 (the resident stream beyond 2^20 rows: key_recon,
     `tile << 19 | id_lo`) and mode 2 (the non-resident draw: exact p0 and
-    rgba8, the tile alone) at config-3 shapes, bit for bit."""
+    rgba8, the tile alone) at config-3 shapes, bit for bit; and in mode 3
+    with rgba8 colours (`pack_rgba_g3`) at the shapes of the demo's
+    quality 2 (4,194,304 rows, 720x1280, a textured colour map), bit for
+    bit, with K2's rgba8 variant on its sorted stream (mode-3 keys) within
+    1e-5 of each channel's max of its plain version."""
     from tendrils_tpu_torch.ops import draw_cuda
     n, hw = 1 << 22, (1080, 1920)
     s = sorted_streams(n, hw, 0.01, 5)
@@ -1885,6 +1930,18 @@ def check_gather_mode_packs(out):
     c = classic_streams(n, hw, 0.01, 6)
     rows.append(("pack_p0_rgba_g2", c["pack_args"],
                  dict(c["pack_kw"], gather=2), 52, 20))
+    hw_demo = DEMO_RES
+    d = classic_streams(n, hw_demo, 0.01, 7, exact_p0=False, gather=3)
+    rows.append(("pack_rgba_g3", d["pack_args"], d["pack_kw"], 48, 16))
+    keym_s, p1_s, vl_s, _, rgba_s = d["sorted"]
+    kw2 = dict(idx_bits=d["bits"], samples=2, grid_hw=hw_demo,
+               pscale=d["pscale"], rgba=rgba_s)
+    within_channel_max("splat_rgba (mode-3 keys)", draw_cuda.splat(
+        d["scal"], keym_s, p1_s, vl_s, **kw2), draw_cuda.splat_plain(
+        d["scal"], p1_s, vl_s, **kw_plain(kw2)))
+    print("  splat_rgba on pack_rgba_g3's sorted stream (mode-3 keys): "
+          "within 1e-5 of each channel's max of its plain version")
+    del keym_s, p1_s, vl_s, rgba_s, kw2
     for name, args, kw, in_b, out_b in rows:
         got = draw_cuda.pack(*args, **kw)
         want = draw_cuda.pack_plain(*args, **kw)
@@ -2907,6 +2964,293 @@ def run_facade_helpers(eng):
     return launches
 
 
+def demo_wav(path):
+    """The track of tests/test_app.py:211-228: 1 s of a 440 Hz sine, 8 kHz,
+    int16 mono, written with `wave`."""
+    import math
+    import wave
+    sr = 8000
+    t = np.arange(sr) / sr
+    pcm = (np.sin(2 * math.pi * 440 * t) * 20000).astype(np.int16)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+    return path
+
+
+def demo_frame(demo, i):
+    """One demo frame as a show feeds it: the synthetic camera's frame `i`
+    (`feeds.camera_frame`, 480x640 u8), DEMO_POINTERS pointers moving on
+    circles (`feeds.add_pointer_points`, as client pixel coords), then
+    `render()`."""
+    import math
+    from tendrils_tpu_torch import feeds
+    demo.feed_video_frame(feeds.camera_frame(i))
+    h, w = demo.tendrils.config.view_res
+    t = demo.timer["app"].time
+    for p in range(DEMO_POINTERS):
+        a = 0.004 * t + p * math.pi / 2
+        r = 0.3 + 0.1 * p
+        demo.pointer_move(p, (r * math.cos(a) + 1) / 2 * w,
+                          (1 - r * math.sin(a)) / 2 * h)
+    demo.render()
+
+
+def check_demo(demo, label, emptied=False):
+    """The demo's state finite with live particles (none may be left when
+    `emptied`: the track timeline's `reset` made every particle inert), its
+    screen [4, H, W] and finite; returns the live count."""
+    sim = demo.tendrils.sim
+    for name in ("particles", "previous", "targets", "flow", "view",
+                 "force"):
+        v = getattr(sim, name)
+        if v is not None and not torch.isfinite(v).all():
+            fail(f"{label}: non-finite {name}")
+    alive = (sim.particles[0] > -9e5).sum().item()
+    if alive == 0 and not emptied:
+        fail(f"{label}: no live particles")
+    h, w = demo.tendrils.config.view_res
+    screen = demo.screen
+    if screen is None or tuple(screen.shape) != (4, h, w) \
+            or not torch.isfinite(screen).all():
+        fail(f"{label}: the screen is "
+             f"{None if screen is None else tuple(screen.shape)} or not "
+             "finite")
+    return alive
+
+
+def demo_timed(demo, name, ids, runs=3):
+    """`name` applied, 2 warm frames, then `runs` timed runs of IO_FRAMES
+    frames (synchronised around each; `ids` numbers the camera frames):
+    ms/frame, median and runs."""
+    demo.apply_preset(name)
+    for _ in range(2):
+        demo_frame(demo, next(ids))
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IO_FRAMES):
+            demo_frame(demo, next(ids))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / IO_FRAMES * 1e3)
+    check_demo(demo, f"demo {name} timed")
+    return statistics.median(times), times
+
+
+def png_size(path):
+    """(height, width) from a PNG's IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        fail(f"{path}: not a PNG")
+    w, h = int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24],
+                                                              "big")
+    return h, w
+
+
+def run_cli(args, label):
+    """`python -m tendrils_tpu_torch ARGS` in a process of its own from the
+    checkout's root; its JSON line."""
+    import os
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "tendrils_tpu_torch", *args],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
+    sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"{label}: exit {out.returncode}: {out.stderr[-2000:]}")
+    try:
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        fail(f"{label}: no JSON line in {out.stdout[-500:]!r}")
+    keys = ["frames", "particles", "ms_per_frame", "particle_steps_per_sec",
+            "out"]
+    if list(line) != keys:
+        fail(f"{label}: JSON line {line}")
+    return line, sec
+
+
+def run_demo_cli(tmp):
+    """Phase 15 (c): the CLI at its defaults in a subprocess, 30 frames of
+    `Flow` with every 10th written, then one frame resumed from its
+    checkpoint."""
+    import os
+    first = os.path.join(tmp, "cli")
+    line, sec = run_cli(["--preset", "Flow", "--frames", "30", "--every",
+                         "10", "--out", first], "the CLI")
+    pngs = sorted(f for f in os.listdir(first) if f.endswith(".png"))
+    if pngs != [f"frame_{i:05d}.png" for i in (0, 10, 20)] \
+            or any(png_size(os.path.join(first, f)) != DEMO_RES
+                   for f in pngs):
+        fail(f"the CLI wrote {pngs}")
+    ck = os.path.join(first, "final.ckpt.npz")
+    if line["particles"] != DEMO_ROOT ** 2 or not os.path.exists(ck):
+        fail(f"the CLI: {line}, checkpoint {os.path.exists(ck)}")
+    second = os.path.join(tmp, "resumed")
+    line2, sec2 = run_cli(["--checkpoint", ck, "--frames", "1", "--out",
+                           second], "the CLI resumed from a checkpoint")
+    t = [json.loads(str(np.load(os.path.join(d, "final.ckpt.npz"))[
+        "__meta__"]))["timer"]["time"] for d in (first, second)]
+    if abs(t[1] - (t[0] + DT)) > 1e-6:
+        fail(f"the resumed CLI ended at time {t[1]}, want {t[0] + DT}")
+    print(f"[15] (c) python -m tendrils_tpu_torch --preset Flow --frames 30 "
+          f"--every 10: exit 0 in {sec:.1f} s, {pngs} of "
+          f"{DEMO_RES[0]}x{DEMO_RES[1]}, final.ckpt.npz; {json.dumps(line)}; "
+          f"--checkpoint final.ckpt.npz --frames 1: exit 0 in {sec2:.1f} s, "
+          f"its timer one step on ({t[0]:.3f} -> {t[1]:.3f} ms); "
+          f"{json.dumps(line2)}")
+
+
+def run_demo_resume(tmp):
+    """Phase 15 (d): `Flow` 5 frames, a checkpoint, 3 more frames; a fresh
+    demo loads the checkpoint and renders the same 3 frames (no camera or
+    pointers: their history is not in a checkpoint). Equal bit for bit, or
+    else, since the checkpoint drops the carried force (the resumed
+    engine gathers its first force with K5 at the float positions, the
+    original carries K4's from the packed positions), particles and
+    previous by identity within the engine frames' atol 1e-4, with the
+    two first forces' difference printed."""
+    import os
+    from tendrils_tpu_torch import engine as tengine
+    from tendrils_tpu_torch.app import TendrilsDemo
+    from tendrils_tpu_torch.io import load_checkpoint, save_checkpoint
+    settings = {"preset": "Flow"}
+    demo = TendrilsDemo(settings, **DEMO_CLI)
+    for _ in range(5):
+        demo.render()
+    path = save_checkpoint(os.path.join(tmp, "resume.ckpt.npz"),
+                           demo.tendrils)
+    carried = demo.tendrils.sim.force.clone()
+    order0 = torch.argsort(demo.tendrils.sim.idx)
+    for _ in range(3):
+        demo.render()
+    fresh = TendrilsDemo(settings, **DEMO_CLI)
+    load_checkpoint(path, fresh.tendrils)
+    eng = fresh.tendrils
+    regathered = tengine.initial_force(
+        eng.sim, eng.params(), eng.config, eng._view_size,
+        tengine._f32(eng.timer.time + DT, eng.device))
+    order1 = torch.argsort(eng.sim.idx)
+    d_force = (carried[:, order0] - regathered[:, order1]).abs().max().item()
+    for _ in range(3):
+        fresh.render()
+    torch.cuda.synchronize()
+    a, b = demo.tendrils.sim, fresh.tendrils.sim
+    equal = all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+                for f in dataclasses.fields(a)
+                if getattr(a, f.name) is not None)
+    errs = {}
+    for name in ("particles", "previous"):
+        x = getattr(a, name)[:, torch.argsort(a.idx)]
+        y = getattr(b, name)[:, torch.argsort(b.idx)]
+        errs[name] = (x - y).abs().max().item()
+    if not equal and max(errs.values()) > 1e-4:
+        fail(f"checkpoint resume: the resumed run differs by {errs}")
+    check_demo(fresh, "demo resumed from a checkpoint")
+    print(f"[15] (d) Flow, 5 frames, checkpoint, 3 frames, against a fresh "
+          f"demo resumed from the checkpoint for the same 3 frames: "
+          + ("every tensor equal bit for bit" if equal else
+             "not bit-equal; by identity particles max |d| "
+             f"{errs['particles']:.3e}, previous {errs['previous']:.3e} "
+             "(held at atol 1e-4)")
+          + f"; the first force re-gathered by K5 against the carried K4 "
+          f"force: max |d| {d_force:.3e}")
+
+
+def run_demo(io_ms):
+    """Phase 15: the demo application (`TendrilsDemo`) on the card at the
+    CLI's defaults: (a) every preset, (b) timed, (c) the CLI, (d) a
+    checkpoint resume. Returns the launch counts of (a) and (b)."""
+    import tempfile
+    from tendrils_tpu_torch.app import PRESETS, TendrilsDemo
+    from tendrils_tpu_torch.ops import cuda_lib, draw_cuda, splat_cuda
+    with tempfile.TemporaryDirectory() as tmp:
+        demo = TendrilsDemo({"track": demo_wav(f"{tmp}/track.wav"),
+                             "animate": "true"}, **DEMO_CLI)
+        demo.play_track()
+        # The track's start sequence (`app/demo.py:_setup_track_start`)
+        # calls `reset()` at 60 ms of track time, which respawns every
+        # particle inert until its `restart()` at 200 ms; every preset's
+        # restart rewinds the clock, so a preset's frames may end between
+        # the two. Counted here, by frame.
+        resets = []
+        reset = demo.reset
+        demo.reset = lambda: (resets.append(demo.frame_count), reset())
+        frames = itertools.count()
+        cuda_lib.reset_counts()
+        t0 = time.perf_counter()
+        alive = {}
+        for name in PRESETS:
+            demo.apply_preset(name)
+            first = demo.frame_count
+            for _ in range(DEMO_FRAMES):
+                demo_frame(demo, next(frames))
+            alive[name] = check_demo(demo, f"demo {name}", emptied=bool(
+                resets) and resets[-1] >= first)
+        torch.cuda.synchronize()
+        sec_a = time.perf_counter() - t0
+        launches_a = dict(cuda_lib.launches)
+        n_frames = len(PRESETS) * DEMO_FRAMES
+        print(f"[15] (a) the demo at {DEMO_RES[0]}x{DEMO_RES[1]}, "
+              f"{demo.tendrils.config.n} particles, a WAV track playing "
+              f"with animate=true, a 480x640 camera and {DEMO_POINTERS} "
+              f"pointers every frame: each of the {len(PRESETS)} presets "
+              f"applied and {DEMO_FRAMES} frames rendered ({n_frames} "
+              f"frames, {sec_a:.1f} s with the presets' setups); states "
+              f"finite, screens [4, {DEMO_RES[0]}, {DEMO_RES[1]}] finite, "
+              f"live particles after each but where the timeline's reset "
+              f"had just emptied the sim ({sorted(k for k, v in alive.items() if v == 0)}; "
+              f"fewest others {min(v for v in alive.values() if v)}); the "
+              f"timeline's reset fired {len(resets)} times; launches "
+              f"{launches_a}; "
+              "a frame: " + ", ".join(
+                  f"{k} {v / n_frames:.2f}" for k, v in launches_a.items()))
+
+        # (b) timed, the track paused (no track reactions mid-run), at
+        # quality 0 and at quality 2; the kernels' kept scratch (K5's
+        # interleaved copy, K9's int64 planes) is keyed by the grid's
+        # shape, so it survives the tiers' re-setups.
+        demo.pause_track()
+        kept = sorted(map(str, splat_cuda._kept))
+        rows = []
+        for level in (0, 2):
+            demo.quality_change(level)
+            n = demo.tendrils.config.n
+            mode = draw_cuda.gather_mode(
+                n, draw_cuda.seg_tile_count(DEMO_RES), ids=True,
+                resident=True)
+            for name in DEMO_TIMED:
+                ms, times = demo_timed(demo, name, frames)
+                rows.append(f"{name} at quality {level} ({n} particles, "
+                            f"gather mode {mode}): {ms:.3f} ms/frame ("
+                            + ", ".join(f"{t:.3f}" for t in times) + ")")
+        demo.quality_change(0)
+        demo_frame(demo, next(frames))
+        check_demo(demo, "demo back at quality 0")
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.launches)
+        plain = dict(cuda_lib.plain_calls)
+        missing = [k for k in DEMO_PATH if launches.get(k, 0) == 0]
+        if missing or any(plain.values()):
+            fail(f"demo: no launch of {missing}; launches {launches}, "
+                 f"plain calls {plain}")
+        print(f"[15] (b) demo render(), median of 3 x {IO_FRAMES} frames "
+              f"with the camera and pointers: " + "; ".join(rows)
+              + f"; beside phase 6's config-4 io frame {io_ms:.3f} "
+              f"ms/frame; K9's kept scratch {kept} before the tiers, "
+              f"{sorted(map(str, splat_cuda._kept))} after; launches over "
+              f"(a) and (b) {launches}, no plain calls")
+        run_demo_cli(tmp)
+        run_demo_resume(tmp)
+    return launches
+
+
 def lap(laps, name, fn, *args):
     """`fn(*args)`, its wall seconds kept in `laps[name]`."""
     t0 = time.perf_counter()
@@ -3000,13 +3344,15 @@ def main():
     launches_t4 = lap(laps, "14 targets config 4", run_targets_config4, ms4)
     launches_f = lap(laps, "14 facade helpers", run_facade_helpers, eng2)
     del eng2
+    torch.cuda.empty_cache()
+    launches_demo = lap(laps, "15 demo", run_demo, ms4)
     if "jax" in sys.modules:
         fail("the port imported jax")
 
     runs = (launches2, launches4, launches_a, launches_bc, launches_m2,
             launches_m3, launches_big, launches_1, launches_show,
-            launches_t5, launches_t2, launches_t4, launches_f)
-    print(f"[15] every phase passed in {time.perf_counter() - t_start:.1f} "
+            launches_t5, launches_t2, launches_t4, launches_f, launches_demo)
+    print(f"[16] every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s; {TRACES['traces']} profiler traces, "
           f"{TRACES['traced again']} of them taken again; seconds by "
           f"phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))

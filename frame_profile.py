@@ -3,6 +3,7 @@
     python3 frame_profile.py [--model M] [--frames 20] [--classic]
                              [--color-maps] [--paused] [--merge] [--show]
                              [--targets]
+    python3 frame_profile.py --demo PRESET [--quality Q] [--frames 20]
     python3 frame_profile.py --gathers
     python3 frame_profile.py --k9-k11
 
@@ -25,7 +26,13 @@ paused draw); `--merge` sets `merge_reorder=True` (the resident frame's
 merge reorder, K10 and K11, in place of the flat sort); `--targets` makes
 a `direct` target spawn from `chip_smoke.py`'s camera frame first
 (`target` 0.003), so the targets ride the resident sort (K4 or K6 with
-targets). Prints the readings of the same frame:
+targets). `--demo PRESET` drives the demo application instead
+(`app.TendrilsDemo` at the CLI's defaults, `chip_smoke.DEMO_CLI`: 720x1280,
+quality `--quality`, 0 by default: 262,144 particles; 2: 4,194,304),
+`PRESET` applied, each frame a `render()` fed as `chip_smoke.py` phase 15
+feeds it (`chip_smoke.demo_frame`: the 480x640 camera and 4 pointers);
+reading 3 then also times the demo's host stages (the camera frame's f32
+grid, the audio sampling). Prints the readings of the same frame:
 
   1. wall ms/frame of the plain loop (the end-to-end number);
   2. a `torch.profiler` trace of `--frames` frames: device time by kernel
@@ -82,7 +89,8 @@ import torch
 def _stage_timers(acc):
     """Wrap the io frame's stages so that each runs alone between two
     device synchronisations; `acc[name]` collects its wall seconds."""
-    from tendrils_tpu_torch import engine, feeds, flow_line, media
+    from tendrils_tpu_torch import audio, engine, feeds, flow_line, media
+    from tendrils_tpu_torch.app import demo
     from tendrils_tpu_torch.ops import draw_cuda, optical_flow as of_ops
     from tendrils_tpu_torch.ops import post, reorder_cuda, sample
 
@@ -121,7 +129,11 @@ def _stage_timers(acc):
         (sample, "sample_uv", "colour-map lookup per particle"),
         (reorder_cuda, "merge_reorder",
          NESTED + "merge reorder (K10 + C sort + K11)"),
-        (draw_cuda, "_read_ok", NESTED + "host read of the merge's ok"))]
+        (draw_cuda, "_read_ok", NESTED + "host read of the merge's ok"),
+        (demo, "image_to_grid",
+         "camera frame to an f32 grid (host, the demo's feed_video_frame)"),
+        (audio.AudioTrigger, "sample", "audio sampling (host numpy)"),
+        (audio.AudioTexture, "grid", "audio textures as grids (host)"))]
 
 
 # Label prefix of the stages that run inside the draw's stage.
@@ -321,6 +333,8 @@ def main():
     ap.add_argument("--merge", action="store_true")
     ap.add_argument("--show", action="store_true")
     ap.add_argument("--targets", action="store_true")
+    ap.add_argument("--demo", metavar="PRESET", default=None)
+    ap.add_argument("--quality", type=int, default=0)
     ap.add_argument("--gathers", action="store_true")
     ap.add_argument("--k9-k11", action="store_true")
     args = ap.parse_args()
@@ -334,12 +348,19 @@ def main():
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.feeds import IoFeed
     from tendrils_tpu_torch.ops import cuda_lib, spawn
-    eng = chip_smoke.config1() if args.model == "default-preview" \
-        else models.build(args.model)
-    eng.config = dataclasses.replace(eng.config,
-                                     resident_stream=not args.classic,
-                                     merge_reorder=args.merge)
-    eng.reseed_derived()
+    if args.demo:
+        from tendrils_tpu_torch.app import TendrilsDemo
+        demo = TendrilsDemo({}, **chip_smoke.DEMO_CLI)
+        demo.quality_change(args.quality)
+        demo.apply_preset(args.demo)
+        eng = demo.tendrils
+    else:
+        eng = chip_smoke.config1() if args.model == "default-preview" \
+            else models.build(args.model)
+        eng.config = dataclasses.replace(eng.config,
+                                         resident_stream=not args.classic,
+                                         merge_reorder=args.merge)
+        eng.reseed_derived()
     if args.targets:
         eng.state["target"] = 0.003
         sp = chip_smoke.image_spawner("direct")
@@ -354,7 +375,10 @@ def main():
                                                      0.01))
         eng.frame()
 
-    if args.show:
+    if args.demo:
+        def step(i):
+            chip_smoke.demo_frame(demo, i)
+    elif args.show:
         def step(i):
             chip_smoke.show_frame(eng, i)
     elif args.model == "optical-flow-driven":
@@ -377,10 +401,17 @@ def main():
         t0 = time.perf_counter()
         frames(args.frames)
         walls.append((time.perf_counter() - t0) / args.frames * 1e3)
-    print(f"{args.model} (classic {args.classic}, colour maps "
-          f"{args.color_maps}, paused {args.paused}, merge {args.merge}, "
-          f"show frame {args.show}, live targets {args.targets}) on "
-          f"{torch.cuda.get_device_name(0)}")
+    if args.demo:
+        print(f"the demo's render() with {args.demo} at quality "
+              f"{args.quality} ({eng.config.n} particles, "
+              f"{eng.config.view_res[0]}x{eng.config.view_res[1]}, the "
+              f"camera and {chip_smoke.DEMO_POINTERS} pointers) on "
+              f"{torch.cuda.get_device_name(0)}")
+    else:
+        print(f"{args.model} (classic {args.classic}, colour maps "
+              f"{args.color_maps}, paused {args.paused}, merge "
+              f"{args.merge}, show frame {args.show}, live targets "
+              f"{args.targets}) on {torch.cuda.get_device_name(0)}")
     print(f"[1] wall: {statistics.median(walls):.3f} ms/frame (median of 3 "
           f"x {args.frames}: {', '.join(f'{w:.3f}' for w in walls)})")
 

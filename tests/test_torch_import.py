@@ -1,4 +1,7 @@
-"""`import tendrils_tpu_torch` loads neither JAX nor Triton, at any depth."""
+"""`import tendrils_tpu_torch` loads neither JAX nor Triton, at any depth:
+the package, its engine modules and its application layer (`app`,
+`animate`, `audio`, `io` and the CLI's module, `__main__`, imported, not
+run)."""
 
 import os
 import pathlib
@@ -13,7 +16,10 @@ def test_port_imports_no_jax_or_triton():
             "tendrils_tpu_torch.models, tendrils_tpu_torch.spawners, "
             "tendrils_tpu_torch.media, tendrils_tpu_torch.flow_line, "
             "tendrils_tpu_torch.ops.splat, tendrils_tpu_torch.ops.splat_cuda, "
-            "tendrils_tpu_torch.ops.optical_flow\n"
+            "tendrils_tpu_torch.ops.optical_flow, tendrils_tpu_torch.app, "
+            "tendrils_tpu_torch.app.keys, tendrils_tpu_torch.app.sub, "
+            "tendrils_tpu_torch.animate, tendrils_tpu_torch.audio, "
+            "tendrils_tpu_torch.io, tendrils_tpu_torch.__main__\n"
             "print(sorted(m for m in ('jax', 'triton', 'tendrils_tpu') "
             "if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
