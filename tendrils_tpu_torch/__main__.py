@@ -9,8 +9,10 @@ Runs the demo app headlessly and writes PNG frames (and a final
 checkpoint), replaying any preset deterministically at the fixed timestep.
 The port of `tendrils_tpu/__main__.py`, with its flags and its final JSON
 line. It runs on the CUDA device unless `--device cpu` is given (there
-every kernel takes its plain PyTorch version); `--backend` takes only
-"kernel", the hand-written kernels (the JAX CLI's "pallas").
+every kernel takes its plain PyTorch version). `--backend` sets the splat
+and gather backends: "kernel" (the default), the fused draw on the
+hand-written kernels (the JAX CLI's "pallas"), or "xla", the generic draw
+in plain PyTorch (the JAX CLI's "xla", its choice off a TPU).
 """
 
 import argparse
@@ -33,7 +35,8 @@ def main(argv=None):
     ap.add_argument("--every", type=int, default=1,
                     help="write every Nth frame")
     ap.add_argument("--quality", type=int, default=0)
-    ap.add_argument("--backend", default="kernel", choices=["kernel"])
+    ap.add_argument("--backend", default="kernel", choices=["kernel", "xla"],
+                    help="splat and gather backend (default kernel)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     ap.add_argument("--checkpoint", default=None,

@@ -1,12 +1,26 @@
 """The Tendrils engine — orchestration of step / draw / spawn.
 
-The port of `tendrils_tpu/engine.py` for the fused draw (`EngineConfig`
-defaults with `flow_levels=1`, `flow_res=None`). Per frame:
+The port of `tendrils_tpu/engine.py`. Per frame:
 
     step_sim   logic step (plain tensor code); the flow force comes carried
-               from the previous frame, or is gathered in the step (K5);
-    draw_sim   pack (K1), sort, splat (K2), and the resolve: K3, or the
-               XLA tail (line widths above KMAX_WIDTH, the paused draw).
+               from the previous frame, or is gathered in the step: K5 on
+               the flow decayed once, one call per pyramid level, with
+               `gather_backend="kernel"`; the reference's interpolate-then-
+               decay order in plain tensor code with "xla";
+    draw_sim   the fused draw: pack (K1), sort, splat (K2), and the
+               resolve: K3, or the XLA tail (line widths above KMAX_WIDTH,
+               the paused draw); or the generic draw: the flow pass and
+               the view pass, each its segments' samples splatted (K9 with
+               `splat_backend="kernel"`, an f32 scatter with "xla") and
+               composited over its grid.
+
+The fused draw runs where `fused_draw` is set, the splat backend is
+"kernel" and the flow grid is the view's (`flow_res` None or equal); the
+generic draw runs everywhere else, as in the JAX package: with
+`fused_draw=False`, on the "xla" splat backend (the JAX package's
+default) and with a flow grid of its own. The carried force needs the
+fused draw, the "kernel" gather and one flow level (`carry_enabled`);
+without it every step gathers its own force.
 
 The resident frame (`resident_stream=True`, the default) lets the state
 ride the draw's sort: the next force's gather and the state reassembly
@@ -15,19 +29,21 @@ order (`sim.idx`); once a target spawn has run, the targets ride with
 the positions (K4 and K6 re-stack them). With `merge_reorder=True` it
 restores that order by merging the rows whose key changed (K10, K11;
 `ops/reorder_cuda.py`) against the carry `sim.sort_key` /
-`sim.sort_hist`, instead of sorting all N rows. The classic frame (`resident_stream=False`) and the
-paused draw (`Tendrils.draw`) keep the row order: the draw sends the exact
-p0 and rgba8 colour streams, and the next force is gathered at the sorted
-p1 (K7, packed q15) and un-sorted by row id (`force_from_aux`). A textured
-colour map sends the rgba8 stream on the resident frame too.
+`sim.sort_hist`, instead of sorting all N rows. The classic frame
+(`resident_stream=False`) and the paused draw (`Tendrils.draw`) keep the
+row order: the draw sends the exact p0 and rgba8 colour streams, and the
+next force is gathered at the sorted p1 (K7, packed q15) and un-sorted by
+row id (`force_from_aux`). A textured colour map sends the rgba8 stream
+on the resident frame too.
 
 The interactive frame (`Tendrils.step_draw_io`, `_frame_io`) blends its
 colour maps before the step and edits the flow after the draw — pointer
-flow lines (`_inject_flow`, the point splat K9) and the camera's optical
-flow (`ops.optical_flow`) — so its draw only reassembles the state (K6),
-and the next force is gathered afterwards from the final flow
-(`force_from_aux`, K8 or K7). Its post stage (`ops/post.py`: the vignette
-blur, then the bokeh) returns the screen.
+flow lines (`_inject_flow`, the point splat on the config's splat
+backend) and the camera's optical flow (`ops.optical_flow`) — so its
+draw only reassembles the state (K6), and the next force is gathered
+afterwards from the final flow (`force_from_aux`, K8 or K7). Its post
+stage (`ops/post.py`: the vignette blur, then the bokeh) returns the
+screen.
 
 With `flowWeight == 0` (`flow_force_unused`, BASELINE config 1) the flow
 term of the step is exactly zero: the step gathers nothing, no frame
@@ -36,10 +52,10 @@ view-only) and passes the flow grid through untouched, as the JAX package
 does; a draw whose flow is edited keeps all 11 channels.
 
 The ordering invariant of the reference holds: the step reads the flow
-BEFORE this frame's deposit (`src/index.js:297-298`). Every other frame
-variant raises NotImplementedError naming its ROADMAP.md item; nothing
-silently takes another path. PyTorch runs eagerly, so there is no jit and
-no scan: `run_headless` is a Python loop.
+BEFORE this frame's deposit (`src/index.js:297-298`). The sharded draw
+(`axis_name`) raises NotImplementedError naming its ROADMAP.md item.
+PyTorch runs eagerly, so there is no jit and no scan: `run_headless` is
+a Python loop.
 """
 
 from __future__ import annotations
@@ -80,7 +96,9 @@ class EngineConfig:
     view_samples: int = 4
     view_rows: int = 1
     # "kernel": the hand-written CUDA kernels (their plain versions on CPU
-    # tensors) — the JAX package's "pallas".
+    # tensors) — the JAX package's "pallas"; "xla": plain tensor code, the
+    # JAX package's portable backends (its defaults), which run the generic
+    # draw and the reference's gather order.
     splat_backend: str = "kernel"
     gather_backend: str = "kernel"
     fused_draw: bool = True
@@ -100,13 +118,34 @@ class EngineConfig:
         return self.flow_res if self.flow_res is not None else self.view_res
 
 
+def flow_pyramid(flow_grid, levels):
+    """LOD pyramid for multi-level flow sampling (ref
+    `flow-at-screen-pos.glsl` levels loop; the reference ships one level):
+    each level the mean of the previous one's 2 x 2 texel blocks. A level
+    that cannot halve raises, as the JAX function's `reshape` does."""
+    grids = [flow_grid]
+    g = flow_grid
+    for _ in range(1, levels):
+        c, h, w = g.shape
+        if h % 2 or w % 2:
+            raise ValueError(f"flow pyramid: a {h}x{w} level cannot halve "
+                             f"({levels} levels of {tuple(flow_grid.shape)})")
+        g = g.reshape(c, h // 2, 2, w // 2, 2).mean(dim=(2, 4))
+        grids.append(g)
+    return grids
+
+
+def fused_draw_ok(cfg: EngineConfig) -> bool:
+    """Whether `draw_sim` takes the fused draw (`fused_draw`, the "kernel"
+    splat, one grid shape); else it takes the generic draw."""
+    return (cfg.fused_draw and cfg.splat_backend == "kernel"
+            and cfg.flow_shape == cfg.view_res)
+
+
 def carry_enabled(cfg: EngineConfig) -> bool:
     """Whether the carried-force fast path is active."""
-    return (cfg.carry_force and cfg.fused_draw
-            and cfg.splat_backend == "kernel"
-            and cfg.gather_backend == "kernel"
-            and cfg.flow_levels == 1
-            and cfg.flow_shape == cfg.view_res)
+    return (cfg.carry_force and fused_draw_ok(cfg)
+            and cfg.gather_backend == "kernel" and cfg.flow_levels == 1)
 
 
 def resident_enabled(cfg: EngineConfig) -> bool:
@@ -150,8 +189,7 @@ def fast_resolve_ok(cfg: EngineConfig, src=None) -> bool:
     engine's state dict or a params dict (see `host_widths`). The CUDA
     resolve takes any grid shape, so the TPU alignment test has no
     counterpart."""
-    if not (cfg.fused_draw and cfg.splat_backend == "kernel"
-            and cfg.flow_shape == cfg.view_res) or src is None:
+    if not fused_draw_ok(cfg) or src is None:
         return False
     return max(*host_widths(src), 1.0) <= KMAX_WIDTH
 
@@ -216,16 +254,20 @@ def step_sim(sim: state_mod.SimState, params, time, dt, cfg: EngineConfig,
              view_size, flow_off=False):
     """Logic step + ping-pong — ref `src/index.js:248-272`.
 
-    Uses the carried force when the previous frame left one, else decays
-    the flow grid once and gathers its 2 velocity channels (K5) at the
-    particles' screen positions. `flow_off` (host-known `flowWeight == 0`,
-    `flow_force_unused`): the flow term is exactly zero, the parameter
-    variance being multiplicative (ref `src/logic.frag:41-43`), so nothing
-    is decayed or gathered."""
-    if cfg.gather_backend != "kernel" or cfg.flow_levels != 1:
-        raise not_ported("the xla gather backend and flow pyramids", 7)
+    Uses the carried force when the previous frame left one. Otherwise, on
+    the "kernel" gather backend, decays the flow grid once and gathers its
+    2 velocity channels (K5) at the particles' screen positions, on each
+    level of its pyramid weighted 1/(level + 1); on "xla" it samples the
+    pyramid of the raw grid and decays what it read
+    (`flow.flow_at_screen_pos`, the reference's order). `flow_off`
+    (host-known `flowWeight == 0`, `flow_force_unused`): the flow term is
+    exactly zero, the parameter variance being multiplicative (ref
+    `src/logic.frag:41-43`), so nothing is decayed or gathered."""
+    if cfg.gather_backend not in ("xla", "kernel"):
+        raise ValueError(f"unknown gather backend: {cfg.gather_backend}")
     uv, index01, _ = state_mod.particle_coords_from_idx(sim.idx,
                                                         cfg.root_num)
+    flows = flow_force_fn = None
     if flow_off:
 
         def flow_force_fn(pos_screen):
@@ -239,16 +281,27 @@ def step_sim(sim: state_mod.SimState, params, time, dt, cfg: EngineConfig,
         def flow_force_fn(pos_screen):
             del pos_screen
             return force
-    else:
-        eff = _decayed(sim.flow, time, params)
-        _, h, w = eff.shape
+    elif cfg.gather_backend == "kernel":
+        # Decay-then-interpolate matches the reference's interpolate-then-
+        # decay but where stale and live texels mix (both ~0 there).
+        eff_pyr = flow_pyramid(_decayed(sim.flow, time, params),
+                               cfg.flow_levels)
 
         def flow_force_fn(pos_screen):
             u = pos_screen * 0.5 + 0.5
-            return bilinear_gather(eff, u[:, 0] * w, u[:, 1] * h)
+            force = total = 0.0
+            for level, grid in enumerate(eff_pyr):
+                _, h, w = grid.shape
+                factor = 1.0 / (level + 1.0)
+                force = force + bilinear_gather(
+                    grid, u[:, 0] * w, u[:, 1] * h) * factor
+                total = total + factor
+            return force / total
+    else:
+        flows = flow_pyramid(sim.flow, cfg.flow_levels)
 
     new_particles = logic.step_particles(
-        sim.particles, None, sim.targets, params, uv, index01, view_size,
+        sim.particles, flows, sim.targets, params, uv, index01, view_size,
         time, dt, flow_force_fn=flow_force_fn)
     return dataclasses.replace(sim, particles=new_particles,
                                previous=sim.particles, force=None)
@@ -259,8 +312,10 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
              targets_live=True, stepped=False, fast_resolve=False,
              read_time=None, want_eff=False, want_force=False,
              flow_off=False, host_widths=None):
-    """Flow + view render passes — ref `src/index.js:278-340` — on the
-    fused draw.
+    """Flow + view render passes — ref `src/index.js:278-340`: the fused
+    draw where it applies (`fused_draw`, the "kernel" splat, one grid
+    shape), else the generic draw (`_draw_generic`), which takes none of
+    the options below but `axis_name` and returns `sim'` alone.
 
     `resident` (with `want_aux`; a step just preceded the draw): the exact
     positions ride the draw's segment sort and the returned sim is
@@ -301,9 +356,11 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     else `sim'`, as the JAX function does."""
     if axis_name is not None:
         raise not_ported("the sharded draw", 12)
-    if not (cfg.fused_draw and cfg.splat_backend == "kernel"
-            and cfg.flow_shape == cfg.view_res):
-        raise not_ported("the generic (xla) draw", 4)
+    if not fused_draw_ok(cfg):
+        if want_aux or want_force:
+            raise ValueError("want_aux and want_force need the fused draw "
+                             "(carry_enabled)")
+        return _draw_generic(sim, params, time, cfg, view_size)
     resident = resident and want_aux
     if want_force and not resident:
         raise ValueError("want_force requires the resident draw "
@@ -406,6 +463,55 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     return new_sim, aux
 
 
+def _draw_generic(sim, params, time, cfg, view_size):
+    """The generic draw — ref `src/index.js:278-340`, JAX `draw_sim`'s
+    two-pass branch: the flow pass splats each particle's segment
+    (previous -> current position, in `flow_shape` pixels) with its
+    velocity payload (`flow.flow_payload`) at `flowWidth`, `flow_samples`
+    x `flow_rows` samples, and composites it over the flow grid, which is
+    not cleared (it decays on read); the view pass clears
+    (`autoClearView`) and fades the view, then splats the particles'
+    render colours (`render.particle_colors`) at `lineWidth`,
+    `view_samples` x `view_rows`, and composites them over it. Each splat
+    runs on `cfg.splat_backend` (K9, or the f32 scatter)."""
+    pos = sim.particles[:2]
+    vel = sim.particles[2:]
+    prev_pos = sim.previous[:2]
+    colormap_uv = state_mod.particle_coords_from_idx(sim.idx,
+                                                     cfg.root_num)[2]
+    live = (((pos[0] != INERT) | (pos[1] != INERT))
+            & ((prev_pos[0] != INERT) | (prev_pos[1] != INERT))).to(
+                torch.float32)
+    # Segment endpoints in window pixels of each target grid.
+    p_clip0 = torch.stack([prev_pos[0] * view_size[0],
+                           prev_pos[1] * view_size[1]], dim=-1)
+    p_clip1 = torch.stack([pos[0] * view_size[0], pos[1] * view_size[1]],
+                          dim=-1)
+    fh, fw = cfg.flow_shape
+    payload = flow_ops.flow_payload(vel, time, params["speedLimit"])
+    flow_parts = splat_ops.splat_segments_accumulate(
+        coords.clip_to_pixel(p_clip0, (fw, fh)),
+        coords.clip_to_pixel(p_clip1, (fw, fh)), payload,
+        payload[3] * live, grid_hw=(fh, fw), width=params["flowWidth"],
+        samples=cfg.flow_samples, rows=cfg.flow_rows,
+        backend=cfg.splat_backend)
+    new_flow = splat_ops.composite_over(sim.flow, *flow_parts)
+    h, w = cfg.view_res
+    view0 = render.fade_fill(sim.view[0] * (1.0 - params["autoClearView"]),
+                             params["fadeColor"] * params["autoFade"])
+    colors = render.particle_colors(pos, vel, colormap_uv, sim.color_map,
+                                    params, time)
+    view_parts = splat_ops.splat_segments_accumulate(
+        coords.clip_to_pixel(p_clip0, (w, h)),
+        coords.clip_to_pixel(p_clip1, (w, h)), colors, colors[3] * live,
+        grid_hw=(h, w), width=params["lineWidth"],
+        samples=cfg.view_samples, rows=cfg.view_rows,
+        backend=cfg.splat_backend)
+    view0 = splat_ops.composite_over(view0, *view_parts)
+    return dataclasses.replace(
+        sim, flow=new_flow, view=torch.cat([view0[None], sim.view[1:]]))
+
+
 def _draw(sim, params, time, dt, cfg, view_size, flow_off=False,
           host_widths=None):
     """The paused draw (the JAX `_draw_jit`): a draw with no step before
@@ -459,15 +565,14 @@ def _frame(sim, params, time, dt, cfg, view_size, targets_live=True,
 def _inject_flow(flow, p0_pix, p1_pix, vel, width, params, time, cfg,
                  samples=None):
     """Flow-line segment injection (ref `demo.main.js:1107-1122`): the
-    segments' velocity payload splatted over the flow grid (K9). Shared by
-    the facade method and the io frame."""
-    if cfg.splat_backend != "kernel":
-        raise not_ported("the xla splat backend (the generic splat)", 4)
+    segments' velocity payload splatted over the flow grid on the config's
+    splat backend (K9, or the f32 scatter). Shared by the facade method and
+    the io frame."""
     payload = flow_ops.flow_payload(vel, time, params["speedLimit"])
     return splat_ops.splat_segments(
         flow, p0_pix, p1_pix, payload, payload[3], grid_hw=cfg.flow_shape,
         width=width, samples=samples or cfg.flow_samples,
-        rows=max(1, cfg.flow_rows))
+        rows=max(1, cfg.flow_rows), backend=cfg.splat_backend)
 
 
 def _resize_payload(grid, hw):

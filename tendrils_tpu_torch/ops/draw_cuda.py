@@ -69,7 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from ..const import INERT
-from . import cuda_lib, not_ported, reorder_cuda
+from . import cuda_lib, fixed_point, not_ported, reorder_cuda
 from .splat import composite_over
 from .tile_geom import HALF, PAD_LO_H, PAD_LO_W, TILE_H, TILE_W, pad_dims
 
@@ -89,6 +89,8 @@ PACK_IDX_BITS = 19
 PACK_MAX_TILES = 1 << 12
 PACK_MAX_IDS = 1 << 24
 COLOR_MAX = 4.0
+# csrc/splat.cu: the most |log1p(-a)| one add can weigh (a <= 1 - 1e-4).
+LOG_BOUND = 9.22
 KMAX_WIDTH = 8.0
 KSPAN = 9  # texels a box of width <= KMAX_WIDTH can touch along one axis
 MAX_BLUR = 32  # the XLA tail's largest box-blur radius
@@ -518,56 +520,91 @@ def _splat_terms(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
     return gx, gy, groups
 
 
-def _box_deposits(groups, hp, wp):
+def _span(lo, hi, first):
+    """The most texels a group's boxes reach along one axis, from `first`
+    (`floor(lo)`): an offset at or past `ceil(hi)` covers nothing, so the
+    offsets past the widest box add only zeros; at most KSPAN."""
+    if first.numel() == 0:
+        return 0
+    return min(KSPAN, int((torch.ceil(hi) - first).max().item()))
+
+
+def _box_deposits(groups, hp, wp, scale=None):
     """The deposits of the box footprints of `groups` (`_splat_terms`),
-    one footprint offset at a time (<= 9 x 9 offsets, every channel group
-    and all samples at once): `(index, value)`, flat indices into `[planes
-    * hp * wp]` and the values `(wr * chan) * wc` (0 where the offset adds
-    nothing)."""
-    for oy in range(KSPAN):
-        for ox in range(KSPAN):
-            index, value = [], []
-            for chans, ch0, inv_w, (lo_y, hi_y, r0), (lo_x, hi_x, c0) \
-                    in groups:
-                r = r0 + oy
+    one channel group and one footprint offset at a time (all samples at
+    once; the offsets up to the group's widest box, `_span`, at most 9 x
+    9): `(index, value)`, flat indices into `[planes * hp * wp]` and the
+    values `(wr * chan) * wc` (0 where the offset adds nothing), or, with
+    `scale` (`f32[planes]`, 2^S of each plane), those values quantised at
+    their plane's fixed-point step (`fixed_point.quantise`, int64)."""
+    for chans, ch0, inv_w, (lo_y, hi_y, r0), (lo_x, hi_x, c0) in groups:
+        planes = (ch0 + torch.arange(len(chans), device=r0.device)) \
+            * (hp * wp)
+        step = None if scale is None else \
+            scale[ch0:ch0 + len(chans)][:, None, None]
+        for oy in range(_span(lo_y, hi_y, r0)):
+            r = r0 + oy
+            wr = _cover(r, lo_y, hi_y) * inv_w
+            for ox in range(_span(lo_x, hi_x, c0)):
                 c = c0 + ox
-                wr = _cover(r, lo_y, hi_y) * inv_w
                 wc = _cover(c, lo_x, hi_x)
                 ok = (wr > 0) & (wc > 0) & (r >= 0) & (r < hp) \
                     & (c >= 0) & (c < wp)
-                value.append(torch.where(ok, (wr * chans) * wc, 0.0))
-                planes = (ch0 + torch.arange(len(chans), device=r.device)) \
-                    * (hp * wp)
+                value = torch.where(ok, (wr * chans) * wc, 0.0)
+                if step is not None:
+                    value = fixed_point.quantise(value, step)
                 texel = (torch.clamp(r, 0, hp - 1) * wp
                          + torch.clamp(c, 0, wp - 1)).to(torch.int64)
-                index.append(planes[:, None, None] + texel)
-            yield (torch.cat([i.reshape(-1) for i in index]),
-                   torch.cat([v.reshape(-1) for v in value]))
+                yield ((planes[:, None, None] + texel).reshape(-1),
+                       value.reshape(-1))
 
 
-def _add_boxes(accum, groups, hp, wp):
+def _add_boxes(accum, groups, hp, wp, scale=None):
     """Add the box footprints of `groups` (`_splat_terms`) into the flat
-    `f32[planes * hp * wp]` accumulator with one `index_add_` per
-    footprint offset (`_box_deposits`)."""
-    for index, value in _box_deposits(groups, hp, wp):
+    `[planes * hp * wp]` accumulator with one `index_add_` per channel
+    group and footprint offset (`_box_deposits`): as they are, or, with
+    `scale` (`f32[planes]`, 2^S of each plane), each quantised at its
+    plane's fixed-point step into an int64 accumulator."""
+    for index, value in _box_deposits(groups, hp, wp, scale):
         accum.index_add_(0, index, value)
     return accum
+
+
+def add_bounds(scal):
+    """The most one add of each of K2's 11 channels can weigh
+    (`csrc/splat.cu: add_bound`; the box weights only shrink an add): flow
+    vx.a and vy.a speedLimit, wf.a and a 1, the log LOG_BOUND; view r.a,
+    g.a, b.a and a.a COLOR_MAX, a 1, the log LOG_BOUND. `f32[N_CHAN]`."""
+    sl = scal[0].abs()
+    one = torch.ones_like(sl)
+    log, cmax = (torch.full_like(sl, v) for v in (LOG_BOUND, COLOR_MAX))
+    return torch.stack([sl, sl, one, one, log, cmax, cmax, cmax, cmax, one,
+                        log])
 
 
 def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
                 rgba=None, flow_off=False):
     """Plain version of K2: the same per-sample arithmetic, deposited with
-    one `index_add_` per footprint offset (<= 9 x 9 offsets, both channel
-    groups, or the view's with `flow_off`, and all samples at once)."""
+    one `index_add_` per channel group (both, or the view's with
+    `flow_off`) and footprint offset (`_box_deposits`), each deposit
+    quantised at its global channel's static fixed-point step and summed
+    in int64 as the kernel sums (`fixed_point`; n x samples adds a texel
+    at most), so the same bits whatever the order of the adds."""
     cuda_lib.plain_calls[_variant("splat", p0 is not None, rgba is not None,
                                   flow_off=flow_off)] += 1
     hp, wp = pad_dims(*grid_hw)
     _, _, groups = _splat_terms(scal, p1, vl, samples=samples,
                                 grid_hw=grid_hw, pscale=pscale, p0=p0,
                                 rgba=rgba, flow_off=flow_off)
-    planes = N_CHAN - first_channel(flow_off)
-    accum = torch.zeros(planes * hp * wp, dtype=_F32, device=p1.device)
-    return _add_boxes(accum, groups, hp, wp).reshape(planes, hp, wp)
+    ch0 = first_channel(flow_off)
+    planes = N_CHAN - ch0
+    shift = fixed_point.fixed_shift(add_bounds(scal)[ch0:],
+                                    p1.shape[0] * samples)
+    accum = torch.zeros(planes * hp * wp, dtype=torch.int64,
+                        device=p1.device)
+    _add_boxes(accum, groups, hp, wp, scale=fixed_point.pow2(shift))
+    return fixed_point.dequantise(accum.reshape(planes, hp * wp),
+                                  shift[:, None]).reshape(planes, hp, wp)
 
 
 # --- K2's tile partition -----------------------------------------------------

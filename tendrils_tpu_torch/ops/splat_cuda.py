@@ -5,11 +5,13 @@ bilinear points with C payload channels into `(num f32[C, H, W], wsum
 f32[H, W], logt f32[H, W])` (csrc/splat_points.cu: int64 fixed-point
 atomics into an unpadded scratch, converted to f32, so every call with the
 same inputs gives the same bits). `splat_accumulate_plain` is its plain
-version, the
-port of `ops/splat.splat_accumulate_xla` with `index_add_`; the wrapper
-takes it for CPU tensors only. The TPU kernel's tile sort, padded margin
-and "moved => alpha 0" rule exist for its region DMAs and compute the same
-function as the per-corner validity test both versions here use.
+version: the same deposits quantised at the same steps and summed in
+int64 with `index_add_` (`fixed_point`), so the same bits; the wrapper
+takes it for CPU tensors only. The f32 scatter of the JAX package's xla
+backend is `splat.splat_accumulate_xla`, which no kernel stands in for.
+The TPU kernel's tile sort, padded margin and "moved => alpha 0" rule
+exist for its region DMAs and compute the same function as the
+per-corner validity test both versions here use.
 
 The kernel's int64 scratch is kept, one per `(C, H, W, device, stream)`:
 allocated zeroed once, and left all zero by every call (the conversion
@@ -24,7 +26,8 @@ the next call allocates a zeroed one.
 
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, fixed_point
+from .splat import _bilinear_corners
 
 _F32 = torch.float32
 # Kernels one `splat_accumulate` call launches with samples (the channel
@@ -77,28 +80,6 @@ def _scratch(c, h, w, device, stream):
     return s
 
 
-def _bilinear_corners(x, y, h, w):
-    """Bilinear splat footprint at window coords (x, y) (pixel centres at
-    integer + 0.5): 4 corner indices `i64[4, M]` (clamped into the grid),
-    weights `f32[4, M]` and validity `f32[4, M]`."""
-    gx = x - 0.5
-    gy = y - 0.5
-    x0 = torch.floor(gx)
-    y0 = torch.floor(gy)
-    fx = gx - x0
-    fy = gy - y0
-    x0i = x0.to(torch.int64)
-    y0i = y0.to(torch.int64)
-    wgt = torch.stack([(1 - fx) * (1 - fy), fx * (1 - fy), (1 - fx) * fy,
-                       fx * fy])
-    xs = torch.stack([x0i, x0i + 1, x0i, x0i + 1])
-    ys = torch.stack([y0i, y0i, y0i + 1, y0i + 1])
-    valid = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
-    xs = torch.clamp(xs, 0, w - 1)
-    ys = torch.clamp(ys, 0, h - 1)
-    return ys * w + xs, wgt, valid.to(_F32)
-
-
 def splat_accumulate(grid_hw, x, y, values, alpha):
     """K9: scatter-accumulate weighted samples. `x`, `y`, `alpha`:
     `f32[M]` (window px); `values`: `f32[C, M]`. Returns `(num f32[C, H,
@@ -140,21 +121,33 @@ def _splat_points(grid_hw, x, y, values, alpha):
 
 
 def splat_accumulate_plain(grid_hw, x, y, values, alpha):
-    """Plain version of K9 (`splat.splat_accumulate_xla`)."""
+    """Plain version of K9: the kernel's deposits, each quantised at its
+    channel's fixed-point step and summed in int64 (`fixed_point`), so
+    that it gives the kernel's bits whatever the order of its adds. The
+    step comes from each channel's largest |add| over the samples the
+    kernel counts (alpha != 0, a corner in the grid): |value x alpha|,
+    |alpha| and |log1p(-alpha)|, M adds a texel at most
+    (`csrc/splat_points.cu`)."""
     cuda_lib.plain_calls["splat_points"] += 1
     h, w = grid_hw
+    c, m = values.shape
     idx, wgt, valid = _bilinear_corners(x, y, h, w)
-    a4 = (alpha[None, :] * wgt * valid).reshape(-1)
-    idxf = idx.reshape(-1)
-    wsum = torch.zeros(h * w, dtype=_F32, device=x.device)
-    wsum.index_add_(0, idxf, a4)
-    # Transmittance accumulates as the bilinear-weighted log.
+    aw = alpha[None, :] * wgt
     log1a = torch.log1p(-torch.clamp(alpha, max=1.0 - 1e-4))
-    logt = torch.zeros(h * w, dtype=_F32, device=x.device)
-    logt.index_add_(0, idxf, (log1a[None, :] * wgt * valid).reshape(-1))
-    c = values.shape[0]
-    vals4 = (values[:, None, :] * (alpha[None, :] * wgt * valid)[None]
-             ).reshape(c, -1)
-    num = torch.zeros((c, h * w), dtype=_F32, device=x.device)
-    num.index_add_(1, idxf, vals4)
-    return num.reshape(c, h, w), wsum.reshape(h, w), logt.reshape(h, w)
+    adds = torch.cat([values[:, None, :] * aw[None], aw[None],
+                      (log1a[None, :] * wgt)[None]])  # [C + 2, 4, M]
+    x0 = torch.floor(x - 0.5)
+    y0 = torch.floor(y - 0.5)
+    on = (alpha != 0) & (x0 >= -1) & (x0 <= w - 1) & (y0 >= -1) \
+        & (y0 <= h - 1)
+    mags = torch.cat([(values * alpha).abs(), alpha.abs()[None],
+                      log1a.abs()[None]])  # [C + 2, M]
+    bound = torch.where(on, mags, 0.0).amax(dim=1) if m else \
+        torch.zeros(c + 2, dtype=_F32, device=x.device)
+    s = fixed_point.fixed_shift(bound, m)
+    q = torch.where(valid > 0, fixed_point.quantise(
+        adds, fixed_point.pow2(s)[:, None, None]), 0)
+    total = torch.zeros((c + 2, h * w), dtype=torch.int64, device=x.device)
+    total.index_add_(1, idx.reshape(-1), q.reshape(c + 2, -1))
+    acc = fixed_point.dequantise(total, s[:, None]).reshape(c + 2, h, w)
+    return acc[:c], acc[c], acc[c + 1]

@@ -102,3 +102,33 @@ def test_module_entry_point(tmp_path):
     assert list(_json_line(out.stdout)) == KEYS
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "final.ckpt.npz", "frame_00000.png", "frame_00001.png"]
+
+
+def test_cli_runs_the_xla_backend(tmp_path, capsys, monkeypatch):
+    """`--backend xla` (the JAX CLI's choice off a TPU) runs the demo on
+    the generic draw: no kernel's plain version runs, the frames and the
+    JSON line as on the kernel backend; an unknown backend is refused."""
+    from tendrils_tpu_torch.app import demo as demo_mod
+    from tendrils_tpu_torch.ops import cuda_lib
+    made = []
+    cls = demo_mod.TendrilsDemo
+
+    class Spy(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr("tendrils_tpu_torch.app.TendrilsDemo", Spy)
+    cuda_lib.reset_counts()
+    out = tmp_path / "out"
+    assert port_main(SMALL + ["--backend", "xla", "--preset", "Flow",
+                              "--frames", "3", "--out", str(out)]) == 0
+    line = _json_line(capsys.readouterr().out)
+    assert list(line) == KEYS and line["frames"] == 3
+    cfg = made[0].tendrils.config
+    assert (cfg.splat_backend, cfg.gather_backend) == ("xla", "xla")
+    assert not cuda_lib.plain_calls
+    assert len(list(out.glob("frame_*.png"))) == 3
+    assert (made[0].tendrils.sim.view[0, 3] > 0).any()
+    with pytest.raises(SystemExit):
+        port_main(SMALL + ["--backend", "pallas"])

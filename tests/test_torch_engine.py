@@ -1,7 +1,8 @@
 """The slice as a whole: the port's resident flow-feedback frame against the
 JAX engine's (its Pallas kernels in interpret mode), from the same state,
-with a 1x1 and a textured colour map; the non-resident force gather; and
-the branches still to port. The comparison is `torch_parity.compare`.
+with a 1x1 and a textured colour map; the non-resident force gather; the
+branch still to port, and the generic draw and xla splat that once
+raised. The comparison is `torch_parity.compare`.
 """
 
 import dataclasses
@@ -15,7 +16,7 @@ import torch
 from tendrils_tpu import engine as jengine
 from tendrils_tpu.ops import spawn as jspawn
 from tendrils_tpu_torch import convert, engine as tengine
-from tendrils_tpu_torch.ops import cuda_lib
+from tendrils_tpu_torch.ops import cuda_lib, spawn as tspawn
 from torch_parity import compare as _compare, port_engine, sim_arrays
 
 pytestmark = pytest.mark.kernel  # runs the JAX Pallas kernels (pytest.ini)
@@ -111,24 +112,49 @@ def test_facades_with_one_seed_draw_the_same_numbers():
 
 
 def test_unported_branches_raise():
+    """The sharded draw (ROADMAP item 12) is the port's one branch still
+    to port; it raises and names its item."""
     cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128))
     eng = tengine.Tendrils(cfg, device="cpu").setup()
-    # The sharded draw.
     with pytest.raises(NotImplementedError, match="sharded.*item 12"):
         tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
                          axis_name="p")
-    # The generic draw.
-    generic = tengine.Tendrils(dataclasses.replace(cfg, fused_draw=False),
-                               device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="generic.*item 4"):
-        generic.frame()
-    # The xla splat backend (e.g. from a converted JAX config).
-    seg = (np.zeros((2, 2), np.float32), np.ones((2, 2), np.float32),
+
+
+def test_generic_draw_runs():
+    """`fused_draw=False` runs the generic draw (K9's plain version twice
+    a frame on CPU tensors, K5's once a step), where it once raised."""
+    cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128),
+                               fused_draw=False)
+    eng = tengine.Tendrils(cfg, device="cpu").setup()
+    eng.spawn_shader(lambda p, e: tspawn.ball(p, e._frag_xy, 0.6, 0.01))
+    cuda_lib.reset_counts()
+    eng.frame()
+    assert dict(cuda_lib.plain_calls) == {"bilinear_gather": 1,
+                                          "splat_points": 2}
+    assert (eng.sim.flow[3] > 0).any() and (eng.sim.view[0, 3] > 0).any()
+
+
+def test_xla_splat_backend_injects():
+    """The xla splat backend (a converted JAX default config) paints
+    pointer segments with its f32 scatter, no kernel's plain version,
+    where it once raised."""
+    cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128),
+                               splat_backend="xla")
+    seg = (np.asarray([[10.0, 8.0], [40.0, 5.0]], np.float32),
+           np.asarray([[14.0, 8.0], [44.0, 9.0]], np.float32),
            np.full((2, 2), 0.01, np.float32))
-    xla = tengine.Tendrils(dataclasses.replace(cfg, splat_backend="xla"),
-                           device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="xla splat.*item 4"):
-        xla.inject_flow_segments(*seg, 2.0)
+    xla = tengine.Tendrils(cfg, device="cpu").setup()
+    cuda_lib.reset_counts()
+    xla.inject_flow_segments(*seg, 2.0)
+    assert not cuda_lib.plain_calls
+    kernel = tengine.Tendrils(dataclasses.replace(cfg, splat_backend="kernel"),
+                              device="cpu").setup()
+    kernel.inject_flow_segments(*seg, 2.0)
+    assert cuda_lib.plain_calls["splat_points"] == 1
+    assert (xla.sim.flow[3] > 0).any()
+    torch.testing.assert_close(xla.sim.flow, kernel.sim.flow, rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_resident_frame_with_textured_colour_map(jax_run):

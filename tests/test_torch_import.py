@@ -1,7 +1,8 @@
 """`import tendrils_tpu_torch` loads neither JAX nor Triton, at any depth:
-the package, its engine modules and its application layer (`app`,
+the package, its engine modules, its application layer (`app`,
 `animate`, `audio`, `io` and the CLI's module, `__main__`, imported, not
-run)."""
+run) and its host modules (`geom`, `native`, `utils`, `ops.physics`,
+`ops.glsl_utils`)."""
 
 import os
 import pathlib
@@ -19,7 +20,14 @@ def test_port_imports_no_jax_or_triton():
             "tendrils_tpu_torch.ops.optical_flow, tendrils_tpu_torch.app, "
             "tendrils_tpu_torch.app.keys, tendrils_tpu_torch.app.sub, "
             "tendrils_tpu_torch.animate, tendrils_tpu_torch.audio, "
-            "tendrils_tpu_torch.io, tendrils_tpu_torch.__main__\n"
+            "tendrils_tpu_torch.io, tendrils_tpu_torch.__main__, "
+            "tendrils_tpu_torch.geom, tendrils_tpu_torch.native, "
+            "tendrils_tpu_torch.utils.fp, "
+            "tendrils_tpu_torch.utils.profiling, "
+            "tendrils_tpu_torch.ops.physics, "
+            "tendrils_tpu_torch.ops.glsl_utils, "
+            "tendrils_tpu_torch.ops.render, "
+            "tendrils_tpu_torch.ops.fixed_point\n"
             "print(sorted(m for m in ('jax', 'triton', 'tendrils_tpu') "
             "if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))

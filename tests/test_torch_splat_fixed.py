@@ -14,10 +14,11 @@ read from the CUDA source. The tests hold the transcription to the worst
 case of the configurations (n x samples up to 2^25), check that every
 deposit of the plain splats' arithmetic lies within its bound, and emulate
 the integer sums in numpy on small seeded splats: two orders of the adds
-give the same bits, within 1e-5 of each channel's max of the plain
-versions. That the kernels follow the rule is checked on the card
-(`chip_smoke.py`: two calls give the same bits, and a frame replays bit
-for bit).
+give the same bits, and the plain versions, which sum in int64 at the
+same steps (`ops/fixed_point.py`), give those bits too, and again under a
+permutation of their samples. That the kernels follow the rule is checked
+on the card (`chip_smoke.py`: each kernel equal to its plain version, two
+calls give the same bits, and a frame replays bit for bit).
 """
 
 import math
@@ -28,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from tendrils_tpu_torch.ops import draw_cuda, splat_cuda
+from tendrils_tpu_torch.ops import draw_cuda, fixed_point, splat_cuda
 from tendrils_tpu_torch.ops.tile_geom import pad_dims
 
 CSRC = pathlib.Path(draw_cuda.__file__).resolve().parents[1] / "csrc"
@@ -104,12 +105,27 @@ def dequantise(total, s):
 def test_transcription_constants_are_the_kernels():
     """The shift's constants and K2's bound table are `csrc/`'s: K9's
     conversion and K2's share `fixed_shift`, and K2's channels have the
-    bounds the transcription uses."""
+    bounds the transcription uses; the plain versions' (`fixed_point`,
+    `draw_cuda.add_bounds`) are the same, and so is their shift."""
     assert (FIX_BITS, FIX_CAP) == (62, 126)
+    assert (fixed_point.FIX_BITS, fixed_point.FIX_CAP) == (FIX_BITS, FIX_CAP)
     assert LOG_BOUND > -math.log(1e-4) and COLOR_MAX == draw_cuda.COLOR_MAX
+    assert np.float32(LOG_BOUND) == np.float32(draw_cuda.LOG_BOUND)
     for sl in (0.01, 0.5, 3.0):
         assert _source_bounds(sl) == [add_bound(sl, k)
                                       for k in range(N_CHAN)]
+        scal = torch.zeros(32)
+        scal[0] = sl
+        np.testing.assert_array_equal(
+            draw_cuda.add_bounds(scal).numpy(),
+            np.float32([add_bound(sl, k) for k in range(N_CHAN)]))
+    for bound in (0.0, 1e-30, 1e-12, 0.01, 1.0, 9.22, 3e5, 1e30):
+        for adds in (1, 480, 1 << 21, MAX_ADDS):
+            got = fixed_point.fixed_shift(torch.tensor([bound]), adds)
+            assert got.item() == fixed_shift(bound, adds), (bound, adds)
+    s = torch.arange(-FIX_CAP, FIX_CAP + 1)
+    np.testing.assert_array_equal(fixed_point.pow2(s).double().numpy(),
+                                  2.0 ** s.double().numpy())
     src = (CSRC / "splat_points.cu").read_text()
     assert "fixed_shift(__int_as_float(bits[k]), m)" in src
     assert "fixed_shift(add_bound(scal, k), (long long)n * samples)" in SPLAT
@@ -234,19 +250,18 @@ def _emulate(index, value, shifts, size, order):
         for k, s in enumerate(shifts)])
 
 
-def _within_channel_max(got, want, c):
+def _equal_to_plain(got, want, c):
+    """The emulated sums' conversion is the plain version's, bit for bit,
+    and no channel is empty."""
     want = want.reshape(c, -1)
-    scale = np.abs(want).max(axis=1)
-    err = np.abs(got.reshape(c, -1) - want).max(axis=1)
-    assert (scale > 0).all()
-    assert (err <= 1e-5 * scale).all(), (err, scale)
+    assert (np.abs(want).max(axis=1) > 0).all()
+    np.testing.assert_array_equal(got.reshape(c, -1), want)
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_k2_fixed_point_sums_are_order_free(variant):
     """K2's integer sums, emulated: two orders of the adds give the same
-    bits, and the converted grid lies within 1e-5 of each channel's max of
-    `splat_plain`."""
+    bits, and the converted grid is `splat_plain`'s bit for bit."""
     n = 3000
     scal, p1, vl, kw = _stream(variant, n, 2)
     index, value = _k2_deposits(scal, p1, vl, kw)
@@ -260,15 +275,14 @@ def test_k2_fixed_point_sums_are_order_free(variant):
     np.testing.assert_array_equal(a[0], b[0])
     np.testing.assert_array_equal(a[1], b[1])
     want = draw_cuda.splat_plain(scal, p1, vl, **kw).numpy()
-    _within_channel_max(a[1], want, N_CHAN)
+    _equal_to_plain(a[1], want, N_CHAN)
 
 
 @pytest.mark.parametrize("m", [480, 20000])
 def test_k9_fixed_point_sums_are_order_free(m):
     """K9's integer sums, emulated with the bounds reduced from the
     samples (|value x alpha|, |alpha|, |log1p(-alpha)|): two orders give
-    the same bits, within 1e-5 of each channel's max of
-    `splat_accumulate_plain`."""
+    the same bits, and `splat_accumulate_plain`'s bit for bit."""
     rng = np.random.default_rng(m)
     h, w = 40, 64
     x = torch.as_tensor(rng.uniform(-2, w + 2, m).astype(np.float32))
@@ -299,7 +313,7 @@ def test_k9_fixed_point_sums_are_order_free(m):
     num, wsum, logt = splat_cuda.splat_accumulate_plain((h, w), x, y, vals,
                                                         alpha)
     want = torch.cat([num, wsum[None], logt[None]]).numpy()
-    _within_channel_max(a[1], want, 6)
+    _equal_to_plain(a[1], want, 6)
 
 
 # --- K2's view-only launch (flow_off) ----------------------------------------
@@ -338,9 +352,8 @@ def test_k2_view_only_launch_keeps_the_global_steps(variant):
     """K2's view-only launch (6 planes, one channel group): every pass
     quantises scratch plane p at the step of global channel N_FLOW + p, so
     the emulated sums, in two orders, are planes 5-10 of the 11-channel
-    sums bit for bit, within 1e-5 of each channel's max of the view-only
-    `splat_plain`; quantised at the flow channels' steps (plane p at
-    channel p), they would not be."""
+    sums bit for bit, and the view-only `splat_plain`'s; quantised at the
+    flow channels' steps (plane p at channel p), they would not be."""
     planes, groups, view_plane0, steps = _view_launch()
     assert (planes, groups, view_plane0) == (draw_cuda.N_VIEW, 1, 0)
     n = 3000
@@ -370,8 +383,54 @@ def test_k2_view_only_launch_keeps_the_global_steps(variant):
     np.testing.assert_array_equal(a[0], full[0][N_FLOW * hp * wp:])
     np.testing.assert_array_equal(a[1], full[1][N_FLOW * hp * wp:])
     want = draw_cuda.splat_plain(scal, p1, vl, flow_off=True, **kw).numpy()
-    _within_channel_max(a[1], want, planes)
+    _equal_to_plain(a[1], want, planes)
     wrong = _emulate(index, value,
                      [fixed_shift(add_bound(SPEED_LIMIT, p), adds)
                       for p in range(planes)], size, np.arange(index.size))
     assert not np.array_equal(wrong[0], a[0])
+
+
+# --- the plain versions' sums do not depend on the order of the samples -----
+
+
+@pytest.mark.parametrize("variant", VARIANTS + ["view"])
+def test_k2_plain_is_order_free(variant):
+    """`splat_plain` on a permutation of the stream's segments gives the
+    same bits (its int64 sums), in every variant and view-only."""
+    n = 3000
+    scal, p1, vl, kw = _stream("splat" if variant == "view" else variant,
+                               n, 6)
+    perm = torch.as_tensor(np.random.default_rng(7).permutation(n))
+    shuffled = {k: v[perm] if isinstance(v, torch.Tensor) else v
+                for k, v in kw.items()}
+    flow_off = variant == "view"
+    a = draw_cuda.splat_plain(scal, p1, vl, flow_off=flow_off, **kw)
+    b = draw_cuda.splat_plain(scal, p1[perm], vl[perm], flow_off=flow_off,
+                              **shuffled)
+    assert a.abs().sum() > 0
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m", [480, 20000])
+def test_k9_plain_is_order_free(m):
+    """`splat_accumulate_plain` on a permutation of its samples gives the
+    same bits, where the f32 scatter of the xla backend
+    (`splat.splat_accumulate_xla`) need not."""
+    from tendrils_tpu_torch.ops import splat
+    rng = np.random.default_rng(m + 1)
+    h, w = 40, 64
+    x = torch.as_tensor(rng.uniform(-2, w + 2, m).astype(np.float32))
+    y = torch.as_tensor(rng.uniform(-2, h + 2, m).astype(np.float32))
+    vals = torch.as_tensor(rng.uniform(-0.01, 0.01, (4, m)).astype(
+        np.float32))
+    alpha = torch.as_tensor(rng.uniform(0, 0.999, m).astype(np.float32))
+    perm = torch.as_tensor(rng.permutation(m))
+    a = splat_cuda.splat_accumulate_plain((h, w), x, y, vals, alpha)
+    b = splat_cuda.splat_accumulate_plain((h, w), x[perm], y[perm],
+                                          vals[:, perm], alpha[perm])
+    for u, v in zip(a, b):
+        assert u.abs().sum() > 0
+        assert torch.equal(u, v)
+    for u, v in zip(a, splat.splat_accumulate_xla((h, w), x, y, vals,
+                                                  alpha)):
+        torch.testing.assert_close(u, v, rtol=1e-5, atol=1e-6)
