@@ -147,6 +147,28 @@ Phases (each prints a line; any failure exits non-zero before the result):
      tendrils_tpu_torch --backend xla`; (g) `geom` on its native path,
      `utils.profiling.FrameProfiler` and `trace` around generic frames.
      Each time beside the card's name and power limit.
+ 17. the sharded frames (`tendrils_tpu_torch.parallel`) on the card: K2
+     with `adds_rows` (at 2n equal to its plain version bit for bit on a
+     seeded config-2 stream; its split conversion equal to the four-launch
+     call; two halves' int64 sums adding up to the whole's); (a) NCCL at
+     world size 1 in this process (a `file://` store): `ParallelTendrils`
+     at config 2 for 10 frames, every tensor equal bit for bit to the
+     single-device `Tendrils` from one state, and `SpatialTendrils` for 3
+     frames within tests/test_parallel.py's slab tolerances of the single
+     device's classic frame with the XLA tail, each timed beside the
+     single device, with the collective bytes a frame; (b) 2 gloo ranks
+     in processes of their own sharing the card (NCCL refuses two ranks on
+     one GPU): data-parallel at config 3 (gather mode 3 on both sides),
+     every row by identity and both grids equal bit for bit to a
+     single-device run on each rank; at config 2 (a shard in mode 3, one
+     device in mode 1) within the mode-3 rule (particles by identity
+     within 1e-4, grid totals within 1e-4; the texels beyond
+     tests/test_parallel.py:76-81 and the force's max |d| printed), and
+     equal bit for bit to one device forced into mode 3; slab at
+     config 2; the merge reorder at config 3 for 3 frames, merged and
+     fallback counts per rank; (c) 4 gloo ranks: the (2, 2) multi-host
+     mesh at config 2 equal bit for bit to the flat mesh. The ranks'
+     launch counts join the per-kernel JSON's.
 Phase 3 also holds K4 with targets at config 2 and K6 with targets at
 config 4 against their plain versions (`torch.equal` on the targets, a
 copy; K4's force within rtol 1e-5) and against K4 and K6 without them,
@@ -669,7 +691,7 @@ def exact_splat(scal, p1, vl, **kw):
 
 def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
                        grid_hw, pscale, p0=None, rgba=None, exact=False,
-                       flow_off=False):
+                       flow_off=False, adds_rows=None, reduce=None):
     """K2 on one sorted stream in every variant (words the stream lacks
     made up: p0 by `p0_words`, rgba8 seeded), each equal to `splat_plain`
     (both sum in int64 at the same fixed-point steps) and the same bits
@@ -680,14 +702,18 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
     samples the stray pass added. With `exact`, the
     stream's own variant also within 1e-5 of each channel's max of
     `exact_splat`, the plain version's distance from it printed beside.
-    `flow_off` is a recorded call's own: the streams held here are of
-    frames with the flow on (the view-only launch has
-    `check_view_only_kernels`). Returns `({variant: max |d|}, strays,
-    split tiles)`."""
+    `flow_off`, `adds_rows` and `reduce` are a recorded call's own: the
+    streams held here are of single-device frames with the flow on (the
+    view-only launch has `check_view_only_kernels`; `adds_rows` and the
+    sum over ranks phase 17). Returns `({variant: max |d|}, strays, split
+    tiles)`."""
     from tendrils_tpu_torch.ops import draw_cuda
     if flow_off:
         fail(f"K2 ({label}): a view-only call where the flow is on")
     n = p1.numel()
+    if reduce is not None or adds_rows not in (None, n):
+        fail(f"K2 ({label}): a sharded call (adds_rows {adds_rows}, a "
+             "reduction) where one device drew")
     p0_w = p0 if p0 is not None else p0_words(scal, p1, vl, grid_hw, pscale)
     rgba_w = rgba if rgba is not None else torch.as_tensor(
         np.random.default_rng(9).integers(0, 1 << 31, n).astype(np.int32),
@@ -1461,6 +1487,8 @@ def replay_respawn(eng3):
         capture_frame(eng3, 0, (draw_cuda, "splat"))),
         "4m-respawn-stress after a respawn")
     a, kw = got["splat"]
+    if kw.pop("reduce") is not None:
+        fail("5: the config-3 frame's splat summed over ranks")
     _, info, queue = draw_cuda.splat_planned(*a, **kw)
     split = (info.reshape(-1, draw_cuda.SPLAT_INFO)[:, 6] > 1).sum().item()
     strays = queue[1].item()
@@ -3754,6 +3782,480 @@ def run_generic(card, fused_ms):
     return total, out
 
 
+# --- phase 17: multi-device -------------------------------------------------
+# The sharded frames (`tendrils_tpu_torch.parallel`) on one card: (a) NCCL at
+# world size 1 in this process, (b) 2 and (c) 4 gloo ranks in processes of
+# their own sharing the card (NCCL refuses two ranks on one GPU).
+
+MULTI_FRAMES = 10  # (a) data-parallel frames at config 2
+SLAB_FRAMES = 3  # (a) slab frames at config 2
+RANK_FRAMES = 2  # (b), (c) sharded frames a check
+MERGE_FRAMES = 3  # (b) the merge reorder at config 3
+RANK_TIMEOUT = 300.0  # s a spawn of ranks may take
+# tests/test_parallel.py's slab tolerances (:134-141): particles rtol,
+# atol; grids rtol, atol.
+SLAB_TOL = ((1e-4, 5e-5), (1e-4, 1e-5))
+# (b) config 2, a shard in gather mode 3 against one device in mode 1: mode
+# 3 clears the positions' low mantissa bits (x: 2, y: 3) before they are
+# quantised, so a sample near a sub-pixel edge may deposit one step over,
+# and a texel it reaches or leaves takes another stamp. Particles by
+# identity within MODE3_ATOL, each grid's total within MODE3_MASS; the
+# share of texels beyond tests/test_parallel.py:76-81's tolerance and the
+# force's max |d| are printed. Against one device forced into mode 3
+# (`Mode3`) every tensor must be equal bit for bit.
+MODE3_ATOL = 1e-4
+MODE3_MASS = 1e-4
+
+
+def clone_sim(sim):
+    return dataclasses.replace(sim, **{
+        f.name: getattr(sim, f.name).clone()
+        for f in dataclasses.fields(sim)
+        if isinstance(getattr(sim, f.name), torch.Tensor)})
+
+
+def twin(name, **cfg_kw):
+    """Two engines of `models.build(name)` holding one state (the second a
+    copy of the first's), `cfg_kw` replaced in both configs."""
+    from tendrils_tpu_torch import models
+    a = models.build(name)
+    b = models.build(name)
+    for e in (a, b):
+        e.config = dataclasses.replace(e.config, **cfg_kw)
+        e.reseed_derived()
+    b.sim, b.timer.time = clone_sim(a.sim), a.timer.time
+    return a, b
+
+
+def timed(frame, frames):
+    """`frames` calls of `frame()`, each synchronised; the ms of each."""
+    ms = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def xla_tail_frame(eng):
+    """One frame of the single device as the facade runs it, with the XLA
+    resolve tail (`fast_resolve=False`): the slab frame's resolve
+    (`_widen_excess`, `composite_over`)."""
+    from tendrils_tpu_torch import engine
+    eng.timer.tick()
+    eng.sim = engine._frame(
+        eng.sim, eng.params(), engine._f32(eng.timer.time, eng.device),
+        engine._f32(eng.timer.dt, eng.device), eng.config, eng._view_size,
+        targets_live=eng._targets_live, fast_resolve=False,
+        host_widths=engine.host_widths(eng.state))
+
+
+class Mode3:
+    """The single device's resident draw in the shards' gather mode 3
+    (ids bounded by twice its rows), so that it clears the same position
+    bits as a shard whose ids reach past its rows."""
+
+    def __enter__(self):
+        from tendrils_tpu_torch.ops import draw_cuda
+        self.orig = orig = draw_cuda.gather_mode
+
+        def mode3(n, num_tiles, *, ids, resident, idx_bound=None):
+            return orig(n, num_tiles, ids=ids, resident=resident,
+                        idx_bound=None if idx_bound is None else 2 * n)
+        draw_cuda.gather_mode = mode3
+        return self
+
+    def __exit__(self, *exc):
+        from tendrils_tpu_torch.ops import draw_cuda
+        draw_cuda.gather_mode = self.orig
+
+
+def rows_by_id(single, shard, name):
+    """`single`'s rows of field `name` with the ids of `shard`'s rows."""
+    inv = torch.empty_like(single.idx, dtype=torch.int64)
+    inv[single.idx.long()] = torch.arange(single.idx.numel(),
+                                          device=single.idx.device)
+    return getattr(single, name)[..., inv[shard.idx.long()]]
+
+
+def max_d(a, b):
+    return (a.double() - b.double()).abs().max().item()
+
+
+def beyond(got, want, rtol, atol):
+    """The share of values of `got` beyond rtol / atol of `want`."""
+    return ((got - want).abs() > atol + rtol * want.abs()).float().mean(
+        ).item()
+
+
+def slab_rows(grid, rank, ranks, axis):
+    h = grid.shape[axis] // ranks
+    return grid.narrow(axis, rank * h, h)
+
+
+def within_slab_tol(label, shard, single, rank=0, ranks=1):
+    """A slab frame's state (this rank's rows in the single device's order,
+    its slab of the grids) against the single device's, within SLAB_TOL;
+    returns the max |d| of each."""
+    (prt, pat), (grt, gat) = SLAB_TOL
+    n = single.particles.shape[1] // ranks
+    out = {}
+    pairs = [(k, getattr(shard, k), getattr(single, k)[:, rank * n:
+                                                       (rank + 1) * n])
+             for k in ("particles", "previous", "force")]
+    pairs += [("flow", shard.flow, slab_rows(single.flow, rank, ranks, 1)),
+              ("view", shard.view, slab_rows(single.view, rank, ranks, 2))]
+    for k, got, want in pairs:
+        rtol, atol = (prt, pat) if k in ("particles", "previous") \
+            else (grt, gat)
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            fail(f"{label}: {k} beyond rtol {rtol} / atol {atol} of the "
+                 f"single device (max |d| {max_d(got, want):.3e})")
+        out[k] = max_d(got, want)
+    return out
+
+
+def sum_counts(counts):
+    total = collections.Counter()
+    for c in counts:
+        total.update(c)
+    return dict(total)
+
+
+def run_nccl_world1(card):
+    """Phase 17 (a): NCCL at world size 1 in this process (a `file://`
+    store): `ParallelTendrils` at config 2 for MULTI_FRAMES frames against
+    the single-device `Tendrils` from one state, every tensor equal bit
+    for bit (both in gather mode 1); `SpatialTendrils` for SLAB_FRAMES
+    frames against the single device's classic frame with the XLA tail
+    (the slab frame's gather order and resolve), within SLAB_TOL. Returns
+    (the sharded runs' launches, the comm payload a frame by layout)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.parallel import (ParallelTendrils,
+                                             SpatialTendrils, comm,
+                                             make_mesh)
+    launches, payload = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            if dist.get_backend() != "nccl":
+                fail(f"(a) backend {dist.get_backend()}, want nccl")
+            mesh = make_mesh()
+            ref, eng = twin("1m-flow")
+            par = ParallelTendrils(eng, mesh)
+            cuda_lib.reset_counts()
+            comm.reset_counts()
+            par_ms = timed(par.frame, MULTI_FRAMES)
+            launches.append(dict(cuda_lib.launches))
+            if cuda_lib.plain_calls:
+                fail(f"(a) plain calls {dict(cuda_lib.plain_calls)}")
+            payload["dp"] = {k: v / MULTI_FRAMES
+                             for k, v in comm.payload.items()}
+            calls = dict(comm.calls)
+            ref_ms = timed(ref.frame, MULTI_FRAMES)
+            names = same_state(ref.sim, eng.sim, "17 (a) data-parallel")
+            check_state(eng.sim, "17 (a) data-parallel")
+            del ref, eng, par
+
+            ref, eng = twin("1m-flow", resident_stream=False)
+            spar = SpatialTendrils(eng, mesh)
+            cuda_lib.reset_counts()
+            comm.reset_counts()
+            slab_ms = timed(spar.frame, SLAB_FRAMES)
+            launches.append(dict(cuda_lib.launches))
+            payload["slab"] = {k: v / SLAB_FRAMES
+                               for k, v in comm.payload.items()}
+            slab_calls = dict(comm.calls)
+            tail_ms = timed(lambda: xla_tail_frame(ref), SLAB_FRAMES)
+            errs = within_slab_tol("17 (a) slab", eng.sim, ref.sim)
+            exact = [k for k in ("particles", "flow", "view", "force")
+                     if torch.equal(getattr(eng.sim, k), getattr(ref.sim, k))]
+            del ref, eng, spar
+        finally:
+            dist.destroy_process_group()
+    med = statistics.median
+    print(f"[17] (a) NCCL, world size 1: ParallelTendrils at config 2 "
+          f"(1m-flow, 1,048,576 particles, 1080x1920), {MULTI_FRAMES} "
+          f"frames against Tendrils from one state: {', '.join(names)} "
+          f"equal bit for bit (gather mode 1 on both); "
+          f"{med(par_ms[1:]):.3f} ms/frame against {med(ref_ms[1:]):.3f} "
+          f"single-device (medians of frames 2-{MULTI_FRAMES}; first "
+          f"frames {par_ms[0]:.3f} and {ref_ms[0]:.3f}); collectives "
+          f"{calls} over the run, {payload['dp']} bytes a frame "
+          f"handed over ({card})")
+    print(f"[17] (a) SpatialTendrils at config 2, {SLAB_FRAMES} frames "
+          f"against the single device's classic frame with the XLA tail: "
+          f"within rtol/atol {SLAB_TOL} (max |d| " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; bit-equal: {', '.join(exact) or 'none'}); "
+          f"{med(slab_ms):.3f} ms/frame against {med(tail_ms):.3f} "
+          f"(medians of {SLAB_FRAMES}: " + ", ".join(
+              f"{a:.3f}/{b:.3f}" for a, b in zip(slab_ms, tail_ms))
+          + f"); collectives {slab_calls}, {payload['slab']} bytes a "
+          f"frame handed over ({card})")
+    return sum_counts(launches), payload
+
+
+def identity_diffs(ref, eng):
+    """`{field: (equal, max |d|)}` of a shard against the single device:
+    rows by identity, grids whole."""
+    diffs = {}
+    for k in ("particles", "previous", "targets", "force"):
+        want = rows_by_id(ref.sim, eng.sim, k)
+        diffs[k] = (torch.equal(getattr(eng.sim, k), want),
+                    max_d(getattr(eng.sim, k), want))
+    for k in ("flow", "view"):
+        diffs[k] = (torch.equal(getattr(eng.sim, k), getattr(ref.sim, k)),
+                    max_d(getattr(eng.sim, k), getattr(ref.sim, k)))
+    return diffs
+
+
+def rank_dp_identity(name, frames, mode3=False):
+    """The data-parallel frame on this rank's shard against the single
+    device's frames it runs itself (with `mode3`, also against a single
+    device forced into the shards' gather mode, `Mode3`): `{field: (equal,
+    max |d|)}`, rows by identity, and each grid's share of texels beyond
+    rtol 1e-4 / atol 1e-5 and relative total difference. Returns
+    (launches of the sharded run, ms a frame of the sharded and the single
+    run, comm moved a frame, diffs, grids, diffs against mode 3)."""
+    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.parallel import ParallelTendrils, comm, make_mesh
+    ref, eng = twin(name)
+    ref3 = twin(name)[1] if mode3 else None
+    par = ParallelTendrils(eng, make_mesh())
+    cuda_lib.reset_counts()
+    comm.reset_counts()
+    ms = timed(par.frame, frames)
+    launches = dict(cuda_lib.launches)
+    moved = {k: v / frames for k, v in comm.moved.items()}
+    ref_ms = timed(ref.frame, frames)
+    diffs3 = None
+    if mode3:
+        with Mode3():
+            for _ in range(frames):
+                ref3.frame()
+        diffs3 = identity_diffs(ref3, eng)
+    diffs = identity_diffs(ref, eng)
+    grids = {}
+    for k in ("flow", "view"):
+        got, want = getattr(eng.sim, k), getattr(ref.sim, k)
+        grids[k] = (beyond(got, want, 1e-4, 1e-5),
+                    abs(got.double().sum().item() / want.double().sum().item()
+                        - 1.0))
+    return launches, (ms, ref_ms), moved, diffs, grids, diffs3
+
+
+def rank_slab(name, frames, rank, ranks):
+    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.parallel import SpatialTendrils, comm, make_mesh
+    ref, eng = twin(name, resident_stream=False)
+    spar = SpatialTendrils(eng, make_mesh())
+    cuda_lib.reset_counts()
+    comm.reset_counts()
+    ms = timed(spar.frame, frames)
+    launches = dict(cuda_lib.launches)
+    moved = {k: v / frames for k, v in comm.moved.items()}
+    for _ in range(frames):
+        xla_tail_frame(ref)
+    errs = within_slab_tol(f"17 slab, rank {rank} of {ranks}", eng.sim,
+                           ref.sim, rank, ranks)
+    return launches, ms, moved, errs
+
+
+def rank_merge(frames):
+    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.parallel import ParallelTendrils, make_mesh
+    eng = twin("4m-respawn-stress", merge_reorder=True)[1]
+    par = ParallelTendrils(eng, make_mesh())
+    cuda_lib.reset_counts()
+    ms = timed(par.frame, frames)
+    launches, events = dict(cuda_lib.launches), dict(cuda_lib.events)
+    check_state(eng.sim, "17 (b) merge")
+    return launches, ms, events, eng.sim.sort_key.numel()
+
+
+def gloo_ranks_2(rank, ranks):
+    """Phase 17 (b), on each of 2 gloo ranks sharing card 0."""
+    torch.cuda.set_device(0)
+    out = {"launches": []}
+    for key, name in (("dp3", "4m-respawn-stress"), ("dp2", "1m-flow")):
+        launches, ms, moved, diffs, grids, diffs3 = rank_dp_identity(
+            name, RANK_FRAMES, mode3=key == "dp2")
+        out["launches"].append(launches)
+        out[key] = dict(ms=ms, moved=moved, diffs=diffs, grids=grids,
+                        diffs3=diffs3)
+    launches, ms, moved, errs = rank_slab("1m-flow", RANK_FRAMES, rank,
+                                          ranks)
+    out["launches"].append(launches)
+    out["slab2"] = dict(ms=ms, moved=moved, errs=errs)
+    launches, ms, events, keys = rank_merge(MERGE_FRAMES)
+    out["launches"].append(launches)
+    out["merge3"] = dict(ms=ms, events=events, keys=keys)
+    out["launches"] = sum_counts(out["launches"])
+    return out
+
+
+def gloo_ranks_4(rank, ranks):
+    """Phase 17 (c), on each of 4 gloo ranks sharing card 0: the `(2, 2)`
+    multi-host mesh against the flat mesh at config 2, this rank's state
+    equal bit for bit."""
+    from tendrils_tpu_torch.ops import cuda_lib
+    from tendrils_tpu_torch.parallel import (ParallelTendrils, comm,
+                                             make_mesh, make_multihost_mesh)
+    torch.cuda.set_device(0)
+    del rank, ranks
+    out, sims, launches = {}, {}, []
+    for label, mesh in (("flat", make_mesh()),
+                        ("multihost", make_multihost_mesh(hosts=2))):
+        eng = twin("1m-flow")[1]
+        par = ParallelTendrils(eng, mesh)
+        cuda_lib.reset_counts()
+        comm.reset_counts()
+        out[label] = dict(ms=timed(par.frame, RANK_FRAMES),
+                          moved={k: v / RANK_FRAMES
+                                 for k, v in comm.moved.items()})
+        launches.append(dict(cuda_lib.launches))
+        sims[label] = eng.sim
+    out["equal"] = [f.name for f in dataclasses.fields(sims["flat"])
+                    if isinstance(getattr(sims["flat"], f.name),
+                                  torch.Tensor)
+                    and torch.equal(getattr(sims["flat"], f.name),
+                                    getattr(sims["multihost"], f.name))]
+    out["launches"] = sum_counts(launches)
+    return out
+
+
+def check_k2_adds_rows():
+    """K2 with `adds_rows` on a seeded config-2 stream: at adds_rows = 2n
+    equal to its plain version bit for bit; its split conversion (three
+    launches, then `splat_convert`) equal to the four-launch call; and two
+    halves of the sorted stream, each at adds_rows = n, summing to the
+    whole stream's int64 sums (the sharded draw's premise)."""
+    from tendrils_tpu_torch.ops import draw_cuda
+    n, hw = 1 << 20, (1080, 1920)
+    s = sorted_streams(n, hw, 0.01, 17)
+    kw = dict(idx_bits=20, samples=2, grid_hw=hw, pscale=s["pscale"])
+    args = (s["scal"], s["keym_s"], s["p1_s"], s["vl_s"])
+    got = draw_cuda.splat(*args, adds_rows=2 * n, **kw)
+    equal_to_plain("K2 at adds_rows = 2n", got, draw_cuda.splat_plain(
+        s["scal"], s["p1_s"], s["vl_s"], adds_rows=2 * n, **kw_plain(kw)))
+    whole = draw_cuda.splat_planned(*args, **kw)[0]
+    split = draw_cuda.splat_convert(s["scal"], whole, samples=2, adds_rows=n)
+    if not torch.equal(split, draw_cuda.splat(*args, **kw)):
+        fail("K2: the split conversion differs from the four-launch call")
+    if torch.equal(split, got):
+        fail("K2: adds_rows = 2n gave the steps of n")
+    half = n // 2
+    parts = [draw_cuda.splat_planned(args[0], *(a[rows] for a in args[1:]),
+                                     adds_rows=n, **kw)[0]
+             for rows in (slice(None, half), slice(half, None))]
+    if not torch.equal(parts[0] + parts[1], whole):
+        fail("K2: two halves' int64 sums at adds_rows = n do not add up "
+             "to the whole stream's")
+    print("[17] K2 with adds_rows on the seeded config-2 stream (1,048,576 "
+          "rows): at adds_rows = 2n equal to its plain version bit for bit; "
+          "the split conversion equal to the four-launch call; two halves' "
+          "int64 sums at adds_rows = n add up to the whole stream's")
+
+
+def run_multi_device(card):
+    """Phase 17: the sharded frames on the card. (a) NCCL at world size 1,
+    (b) 2 gloo ranks sharing the card (data-parallel at config 3 by
+    identity against the single device, at config 2 within the mode-3
+    rule, slab at config 2, the merge at config 3), (c) 4 gloo ranks (the
+    (2, 2) multi-host mesh against the flat one), K2 with `adds_rows`.
+    Returns the sharded runs' launch counts."""
+    from tendrils_tpu_torch.parallel import dryrun
+    t0 = time.perf_counter()
+    check_k2_adds_rows()
+    launches_a, payload = run_nccl_world1(card)
+    t_a = time.perf_counter() - t0
+    two = dryrun.spawn_ranks(gloo_ranks_2, 2, timeout=RANK_TIMEOUT)
+    t_b = time.perf_counter() - t0 - t_a
+    for r, res in enumerate(two):
+        bad = {k: d for k, (eq, d) in res["dp3"]["diffs"].items() if not eq}
+        if bad:
+            fail(f"17 (b) config 3, rank {r}: not equal to the single "
+                 f"device by identity: max |d| {bad}")
+        d2, g2 = res["dp2"]["diffs"], res["dp2"]["grids"]
+        if max(d2[k][1] for k in ("particles", "previous")) > MODE3_ATOL \
+                or any(total > MODE3_MASS for _, total in g2.values()):
+            fail(f"17 (b) config 2, rank {r}: beyond the mode-3 rule: "
+                 f"{d2}, grids (share beyond, total) {g2}")
+        bad = {k: d for k, (eq, d) in res["dp2"]["diffs3"].items()
+               if not eq}
+        if bad:
+            fail(f"17 (b) config 2, rank {r}: not equal to the single "
+                 f"device in gather mode 3 by identity: max |d| {bad}")
+        ev = res["merge3"]["events"]
+        if ev.get("reorder_merged", 0) + ev.get("reorder_fallback", 0) \
+                != MERGE_FRAMES or ev.get("reorder_fallback", 0) < 1:
+            fail(f"17 (b) merge, rank {r}: events {ev}")
+    four = dryrun.spawn_ranks(gloo_ranks_4, 4, timeout=RANK_TIMEOUT)
+    t_c = time.perf_counter() - t0 - t_a - t_b
+    for r, res in enumerate(four):
+        if not {"particles", "previous", "flow", "view", "force",
+                "idx"} <= set(res["equal"]):
+            fail(f"17 (c) rank {r}: the multi-host mesh's state differs "
+                 f"from the flat mesh's (equal: {res['equal']})")
+    med = statistics.median
+    b0 = two[0]
+    print(f"[17] (b) gloo, 2 ranks sharing the card: data-parallel at "
+          f"config 3 (4m-respawn-stress, 4,194,304 particles, gather mode 3 "
+          f"on both sides), {RANK_FRAMES} frames: every row by identity and "
+          f"both grids equal bit for bit to the single device on each rank; "
+          f"ms a frame, sharded / single, rank 0: " + ", ".join(
+              f"{a:.1f}/{b:.1f}" for a, b in zip(*b0['dp3']['ms']))
+          + f"; ring bytes a rank a frame {b0['dp3']['moved']}")
+    print(f"[17] (b) data-parallel at config 2, {RANK_FRAMES} frames (a "
+          f"shard in gather mode 3, one device in mode 1): max |d| by rank "
+          + "; ".join(f"{r}: " + ", ".join(
+              f"{k} {d:.3e}{' (equal)' if eq else ''}"
+              for k, (eq, d) in res["dp2"]["diffs"].items())
+              for r, res in enumerate(two))
+          + f" (rows within atol {MODE3_ATOL}); texels beyond rtol 1e-4 / "
+          f"atol 1e-5 and relative total difference, rank 0: " + ", ".join(
+              f"{k} {a:.3e} {t:.3e}" for k, (a, t) in
+              b0["dp2"]["grids"].items())
+          + f" (totals within {MODE3_MASS}); against one device forced "
+          f"into gather mode 3, every row by identity and both grids equal "
+          f"bit for bit on each rank; ms a frame, sharded / "
+          f"single, rank 0: " + ", ".join(
+              f"{a:.1f}/{b:.1f}" for a, b in zip(*b0['dp2']['ms']))
+          + f"; ring bytes a rank a frame {b0['dp2']['moved']}")
+    print(f"[17] (b) slab at config 2, {RANK_FRAMES} frames: within "
+          f"rtol/atol {SLAB_TOL} of the single device on each rank (max "
+          f"|d| rank 0: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                     b0["slab2"]["errs"].items())
+          + "); ms a frame rank 0: " + ", ".join(
+              f"{v:.1f}" for v in b0["slab2"]["ms"])
+          + f"; ring bytes a rank a frame {b0['slab2']['moved']}")
+    print(f"[17] (b) the merge reorder at config 3, {MERGE_FRAMES} frames "
+          f"on 2,097,152 rows a rank: " + "; ".join(
+              f"rank {r}: {res['merge3']['events']}, ms a frame "
+              + ", ".join(f"{v:.1f}" for v in res["merge3"]["ms"])
+              for r, res in enumerate(two)))
+    c0 = four[0]
+    print(f"[17] (c) gloo, 4 ranks sharing the card: the (2, 2) multi-host "
+          f"mesh at config 2, {RANK_FRAMES} frames, equal bit for bit to the "
+          f"flat mesh on every rank ({', '.join(c0['equal'])}); ms a frame "
+          f"rank 0, flat / multi-host: " + ", ".join(
+              f"{a:.1f}/{b:.1f}" for a, b in zip(c0["flat"]["ms"],
+                                                 c0["multihost"]["ms"]))
+          + f"; ring bytes a rank a frame {c0['flat']['moved']}")
+    total = sum_counts([launches_a] + [r["launches"] for r in two + four])
+    print(f"[17] multi-device phase in {time.perf_counter() - t0:.1f} s "
+          f"((a) {t_a:.1f}, (b) {t_b:.1f}, (c) {t_c:.1f}); launches of "
+          f"the sharded runs, all ranks: {total} ({card})")
+    return total
+
+
 def lap(laps, name, fn, *args):
     """`fn(*args)`, its wall seconds kept in `laps[name]`."""
     t0 = time.perf_counter()
@@ -3853,14 +4355,15 @@ def main():
     checks.update(k9_row)
     # Phase 16's K9 launches count under the generic draw's row.
     launches_g["splat_points_generic"] = launches_g.pop("splat_points", 0)
+    launches_md = lap(laps, "17 multi-device", run_multi_device, card)
     if "jax" in sys.modules:
         fail("the port imported jax")
 
     runs = (launches2, launches4, launches_a, launches_bc, launches_m2,
             launches_m3, launches_big, launches_1, launches_show,
             launches_t5, launches_t2, launches_t4, launches_f, launches_demo,
-            launches_g)
-    print(f"[17] every phase passed in {time.perf_counter() - t_start:.1f} "
+            launches_g, launches_md)
+    print(f"[18] every phase passed in {time.perf_counter() - t_start:.1f} "
           f"s; {TRACES['traces']} profiler traces, "
           f"{TRACES['traced again']} of them taken again; seconds by "
           f"phase: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))

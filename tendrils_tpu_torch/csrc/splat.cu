@@ -25,8 +25,12 @@
 // scale per channel and added as an integer, so the accumulator does not
 // depend on the order of the adds and a frame replays bit for bit. The
 // scale comes from the most one add of a channel can weigh (`add_bound`)
-// and the most adds one texel can receive, n x samples (a sample adds once
-// to each texel of its box).
+// and the most adds one texel can receive, adds_rows x samples (a sample
+// adds once to each texel of its box). `adds_rows`, a launch parameter, is
+// the rows of the whole frame: n on one device; on a shard of a frame split
+// over ranks, the frame's global row count, so that every rank quantises at
+// the step one device takes for the same particles and the ranks' int64
+// sums add up (before the conversion, pass 4) to that device's bit for bit.
 //
 // Bound: deposits. At config 2 that is ~2M samples x (36 texels x 5 flow
 // channels + 4 texels x 6 view channels) ~ 4.3e8 adds a frame. Added with
@@ -112,6 +116,7 @@ struct Params {
   int n, samples, h, w, hp, wp, tiles_x, bits;
   float pscale;
   int ch0;  // global channel of the scratch's first plane: 0 or N_FLOW
+  int adds_rows;  // rows whose adds the fixed-point steps leave room for
 };
 
 // The channel groups a launch deposits (the tile pass's gridDim.y): the
@@ -144,10 +149,10 @@ __device__ __forceinline__ float add_bound(const float* scal, int k) {
   }
 }
 
-// S_k of global channel k for a stream of n segments x samples.
-__device__ __forceinline__ int channel_shift(const float* scal, int k, int n,
-                                             int samples) {
-  return fixed_shift(add_bound(scal, k), (long long)n * samples);
+// S_k of global channel k for a frame of adds_rows segments x samples.
+__device__ __forceinline__ int channel_shift(const float* scal, int k,
+                                             int adds_rows, int samples) {
+  return fixed_shift(add_bound(scal, k), (long long)adds_rows * samples);
 }
 
 // Box-overlap coverage of texel `idx` by the footprint [lo, hi).
@@ -478,7 +483,7 @@ __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
 #pragma unroll
   for (int k = 0; k < NCH; ++k) {
     scale[k] = pow2f(channel_shift(P.scal, (NCH == N_FLOW ? 0 : N_FLOW) + k,
-                                   P.n, P.samples));
+                                   P.adds_rows, P.samples));
   }
   __syncthreads();
 
@@ -658,7 +663,7 @@ __global__ void splat_stray_kernel(Params P, int* __restrict__ strays,
   if (P.ch0 == 0 && group_channels<N_FLOW>(P, i, g, ch)) {
     const float width = group_width<N_FLOW>(P.scal);
     for (int k = 0; k < N_FLOW; ++k) {
-      scale[k] = pow2f(channel_shift(P.scal, k, P.n, P.samples));
+      scale[k] = pow2f(channel_shift(P.scal, k, P.adds_rows, P.samples));
     }
     deposit<N_FLOW>(fix, P.hp, P.wp, ch, scale, g.gx, g.gy, width * 0.5f,
                     1.0f / width);
@@ -666,7 +671,8 @@ __global__ void splat_stray_kernel(Params P, int* __restrict__ strays,
   if (group_channels<N_VIEW>(P, i, g, ch)) {
     const float width = group_width<N_VIEW>(P.scal);
     for (int k = 0; k < N_VIEW; ++k) {
-      scale[k] = pow2f(channel_shift(P.scal, N_FLOW + k, P.n, P.samples));
+      scale[k] =
+          pow2f(channel_shift(P.scal, N_FLOW + k, P.adds_rows, P.samples));
     }
     deposit<N_VIEW>(fix + (N_FLOW - P.ch0) * (long long)P.hp * P.wp, P.hp,
                     P.wp, ch, scale, g.gx, g.gy, width * 0.5f, 1.0f / width);
@@ -678,14 +684,15 @@ __global__ void splat_stray_kernel(Params P, int* __restrict__ strays,
 // Thread i converts texels 4i..4i+3 of the flat [N_CHAN - ch0, hp, wp]
 // scratch (a plane holds plane4 groups of 4; plane p is global channel
 // ch0 + p).
-__global__ void splat_convert_kernel(const float* __restrict__ scal, int n,
-                                     int samples, int plane4, int ch0,
+__global__ void splat_convert_kernel(const float* __restrict__ scal,
+                                     int adds_rows, int samples, int plane4,
+                                     int ch0,
                                      const long long* __restrict__ fix,
                                      float* __restrict__ acc) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)(N_CHAN - ch0) * plane4) return;
-  const float inv = pow2f(-channel_shift(scal, ch0 + (int)(i / plane4), n,
-                                          samples));
+  const float inv = pow2f(-channel_shift(scal, ch0 + (int)(i / plane4),
+                                          adds_rows, samples));
   const longlong2* src = reinterpret_cast<const longlong2*>(fix) + 2 * i;
   const longlong2 a = __ldcs(src);
   const longlong2 b = __ldcs(src + 1);
@@ -697,9 +704,9 @@ __global__ void splat_convert_kernel(const float* __restrict__ scal, int n,
 Params make_params(const float* scal, const int* keys, const int* p1,
                    const int* vl, const int* p0, const int* rgba, int n,
                    int samples, int h, int w, int hp, int wp, int bits,
-                   float pscale, int ch0) {
+                   float pscale, int ch0, int adds_rows) {
   return Params{scal, keys, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
-                wp / TILE_W, bits, pscale, ch0};
+                wp / TILE_W, bits, pscale, ch0, adds_rows};
 }
 
 }  // namespace
@@ -726,10 +733,11 @@ extern "C" int tt_splat_tiles(const float* scal, const int* keys,
                               const int* p1, const int* vl, const int* p0,
                               const int* rgba, int n, int samples, int h,
                               int w, int hp, int wp, int bits, float pscale,
-                              int ch0, const int* info, const int* queue,
-                              int queue_cap, long long* fix, void* stream) {
+                              int ch0, int adds_rows, const int* info,
+                              const int* queue, int queue_cap, long long* fix,
+                              void* stream) {
   const Params P = make_params(scal, keys, p1, vl, p0, rgba, n, samples, h,
-                               w, hp, wp, bits, pscale, ch0);
+                               w, hp, wp, bits, pscale, ch0, adds_rows);
   const dim3 grid(queue_cap + (hp / TILE_H) * (wp / TILE_W),
                   channel_groups(ch0));
   const cudaStream_t s = (cudaStream_t)stream;
@@ -747,30 +755,32 @@ extern "C" int tt_splat_strays(const float* scal, const int* keys,
                                const int* p1, const int* vl, const int* p0,
                                const int* rgba, int n, int samples, int h,
                                int w, int hp, int wp, int bits, float pscale,
-                               int ch0, int* queue, long long* fix,
-                               void* stream) {
+                               int ch0, int adds_rows, int* queue,
+                               long long* fix, void* stream) {
   const long long items = (long long)n * samples;
   if (items > 0) {
     splat_stray_kernel<<<blocks_for(items), THREADS, 0,
                          (cudaStream_t)stream>>>(
         make_params(scal, keys, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
-                    bits, pscale, ch0),
+                    bits, pscale, ch0, adds_rows),
         queue + 1, fix);
   }
   return (int)cudaGetLastError();
 }
 
-// Pass 4, after pass 3 on the same stream: `accum`, f32 [N_CHAN - ch0, hp,
-// wp], from the scratch (wp is a multiple of TILE_W, so a plane holds whole
-// groups of 4 texels).
-extern "C" int tt_splat_convert(const float* scal, int n, int samples,
-                                int hp, int wp, int ch0, const long long* fix,
-                                float* accum, void* stream) {
+// Pass 4, after pass 3 on the same stream (on a shard, after the ranks'
+// scratches were summed): `accum`, f32 [N_CHAN - ch0, hp, wp], from the
+// scratch at the steps of `adds_rows` (wp is a multiple of TILE_W, so a
+// plane holds whole groups of 4 texels).
+extern "C" int tt_splat_convert(const float* scal, int adds_rows,
+                                int samples, int hp, int wp, int ch0,
+                                const long long* fix, float* accum,
+                                void* stream) {
   const int plane4 = hp * wp / 4;
   const long long groups = (long long)(N_CHAN - ch0) * plane4;
   splat_convert_kernel<<<(int)((groups + CONVERT_THREADS - 1) /
                                CONVERT_THREADS),
                          CONVERT_THREADS, 0, (cudaStream_t)stream>>>(
-      scal, n, samples, plane4, ch0, fix, accum);
+      scal, adds_rows, samples, plane4, ch0, fix, accum);
   return (int)cudaGetLastError();
 }

@@ -52,10 +52,12 @@ view-only) and passes the flow grid through untouched, as the JAX package
 does; a draw whose flow is edited keeps all 11 channels.
 
 The ordering invariant of the reference holds: the step reads the flow
-BEFORE this frame's deposit (`src/index.js:297-298`). The sharded draw
-(`axis_name`) raises NotImplementedError naming its ROADMAP.md item.
-PyTorch runs eagerly, so there is no jit and no scan: `run_headless` is
-a Python loop.
+BEFORE this frame's deposit (`src/index.js:297-298`). A frame whose
+particles are split over ranks (`parallel/`) draws with `axis_name`, a
+process group: each rank splats its own rows and the splat sums are
+summed over the ranks before the resolve, so every rank holds the whole
+frame's grids. PyTorch runs eagerly, so there is no jit and no scan:
+`run_headless` is a Python loop.
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ import torch.nn.functional as F
 
 from . import state as state_mod
 from .const import INERT
-from .ops import coords, flow as flow_ops, logic, not_ported
+from .ops import coords, flow as flow_ops, logic
 from .ops import optical_flow as of_ops, post as post_ops, render, sample
 from .ops import spawn as spawn_ops, splat as splat_ops
 from .ops.draw_cuda import (KMAX_WIDTH, fused_draw, gather_mode,
@@ -317,6 +319,15 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     shape), else the generic draw (`_draw_generic`), which takes none of
     the options below but `axis_name` and returns `sim'` alone.
 
+    `axis_name` (the JAX function's shard_map axis): the process group, or
+    a callable that sums a tensor over the ranks, of a frame whose
+    particles are split over ranks; `sim` holds this rank's rows and the
+    whole grids. The fused draw sums K2's int64 sums over the ranks
+    before their conversion (`draw_cuda.fused_draw(psum=...)`), so the
+    accumulator is that of one device drawing every row, bit for bit; the
+    generic draw sums its f32 parts, once a frame, as the JAX function
+    psums them. Every rank then resolves the same grids.
+
     `resident` (with `want_aux`; a step just preceded the draw): the exact
     positions ride the draw's segment sort and the returned sim is
     permuted into the sorted row order (`sim.idx` tracks identity).
@@ -354,13 +365,12 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     Returns `(sim', aux[, eff])` with `want_aux` (aux = (sorted row ids,
     sorted p1 words); `eff` with `want_eff` when no force was gathered),
     else `sim'`, as the JAX function does."""
-    if axis_name is not None:
-        raise not_ported("the sharded draw", 12)
     if not fused_draw_ok(cfg):
         if want_aux or want_force:
             raise ValueError("want_aux and want_force need the fused draw "
                              "(carry_enabled)")
-        return _draw_generic(sim, params, time, cfg, view_size)
+        return _draw_generic(sim, params, time, cfg, view_size,
+                             psum=axis_name)
     resident = resident and want_aux
     if want_force and not resident:
         raise ValueError("want_force requires the resident draw "
@@ -423,7 +433,7 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
         mapped_scalar=mapped_scalar,
         resolve="kernel" if fast_resolve else "xla", read_time=read_time,
         want_eff=k3_eff, flow_off=flow_off, reorder=reorder,
-        host_widths=host_widths)
+        host_widths=host_widths, psum=axis_name, adds_rows=cfg.n)
     carry = rest.pop() if reorder is not None else None
     eff = rest[0] if rest else None
     view = torch.cat([view0[None], sim.view[1:]])
@@ -463,7 +473,7 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     return new_sim, aux
 
 
-def _draw_generic(sim, params, time, cfg, view_size):
+def _draw_generic(sim, params, time, cfg, view_size, psum=None):
     """The generic draw — ref `src/index.js:278-340`, JAX `draw_sim`'s
     two-pass branch: the flow pass splats each particle's segment
     (previous -> current position, in `flow_shape` pixels) with its
@@ -473,7 +483,12 @@ def _draw_generic(sim, params, time, cfg, view_size):
     (`autoClearView`) and fades the view, then splats the particles'
     render colours (`render.particle_colors`) at `lineWidth`,
     `view_samples` x `view_rows`, and composites them over it. Each splat
-    runs on `cfg.splat_backend` (K9, or the f32 scatter)."""
+    runs on `cfg.splat_backend` (K9, or the f32 scatter). `psum` (a
+    shard's, see `draw_sim`): both passes' parts are summed over the
+    ranks in one collective before they are composited. K9's fixed-point
+    steps come from its samples (its first launch), so the ranks' int64
+    sums are not at one step: the f32 parts are summed, as the JAX
+    function psums them, and agree with one device's within f32 rounding."""
     pos = sim.particles[:2]
     vel = sim.particles[2:]
     prev_pos = sim.previous[:2]
@@ -495,10 +510,7 @@ def _draw_generic(sim, params, time, cfg, view_size):
         payload[3] * live, grid_hw=(fh, fw), width=params["flowWidth"],
         samples=cfg.flow_samples, rows=cfg.flow_rows,
         backend=cfg.splat_backend)
-    new_flow = splat_ops.composite_over(sim.flow, *flow_parts)
     h, w = cfg.view_res
-    view0 = render.fade_fill(sim.view[0] * (1.0 - params["autoClearView"]),
-                             params["fadeColor"] * params["autoFade"])
     colors = render.particle_colors(pos, vel, colormap_uv, sim.color_map,
                                     params, time)
     view_parts = splat_ops.splat_segments_accumulate(
@@ -507,6 +519,12 @@ def _draw_generic(sim, params, time, cfg, view_size):
         grid_hw=(h, w), width=params["lineWidth"],
         samples=cfg.view_samples, rows=cfg.view_rows,
         backend=cfg.splat_backend)
+    if psum is not None:
+        from .parallel.comm import reduce_parts
+        flow_parts, view_parts = reduce_parts(psum, flow_parts, view_parts)
+    new_flow = splat_ops.composite_over(sim.flow, *flow_parts)
+    view0 = render.fade_fill(sim.view[0] * (1.0 - params["autoClearView"]),
+                             params["fadeColor"] * params["autoFade"])
     view0 = splat_ops.composite_over(view0, *view_parts)
     return dataclasses.replace(
         sim, flow=new_flow, view=torch.cat([view0[None], sim.view[1:]]))
@@ -531,30 +549,34 @@ def _draw(sim, params, time, dt, cfg, view_size, flow_off=False,
 
 
 def _frame(sim, params, time, dt, cfg, view_size, targets_live=True,
-           fast_resolve=False, flow_off=False, host_widths=None):
+           fast_resolve=False, flow_off=False, host_widths=None,
+           axis_name=None):
     """One frame: step + draw, the next force carried on `sim`: gathered
     in the resident draw (K4), or by `force_from_aux` after a classic draw
     (K7 from K3's decayed flow). Without the carried force the step
     gathers its own (K5) and the draw gathers none. With `flow_off` no
     force is gathered at all: the resident draw rebuilds the state alone
-    (K6), the classic one is a plain draw (no ids, no K7)."""
+    (K6), the classic one is a plain draw (no ids, no K7). `axis_name`:
+    the draw's (a shard's frame, `parallel.sharding.parallel_frame`); the
+    step and the force gathers run on this rank's rows, the gathers from
+    the whole flow every rank holds."""
     sim = step_sim(sim, params, time, dt, cfg, view_size, flow_off=flow_off)
     if not carry_enabled(cfg):
         return draw_sim(sim, params, time, cfg, view_size, stepped=True,
                         fast_resolve=fast_resolve, flow_off=flow_off,
-                        host_widths=host_widths)
+                        host_widths=host_widths, axis_name=axis_name)
     resident = resident_enabled(cfg)
     if flow_off and not resident:
         # Nothing consumes the flow force: no aux stream, no gather.
         return draw_sim(sim, params, time, cfg, view_size, stepped=True,
                         fast_resolve=fast_resolve, flow_off=True,
-                        host_widths=host_widths)
+                        host_widths=host_widths, axis_name=axis_name)
     out = draw_sim(sim, params, time, cfg, view_size, want_aux=True,
                    resident=resident, targets_live=targets_live,
                    stepped=True, fast_resolve=fast_resolve,
                    read_time=time + dt, want_eff=fast_resolve and not flow_off,
                    want_force=resident and not flow_off, flow_off=flow_off,
-                   host_widths=host_widths)
+                   host_widths=host_widths, axis_name=axis_name)
     if resident:
         return out[0]
     sim, aux, *eff = out

@@ -44,9 +44,9 @@ _SIGNATURES = {
                 _P, _P, _P, _P, _P],
     "tt_splat_plan": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
     "tt_splat_tiles": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _I, _P, _P, _I, _P, _P],
+                       _F, _I, _I, _P, _P, _I, _P, _P],
     "tt_splat_strays": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _I, _P, _P, _P],
+                        _F, _I, _I, _P, _P, _P],
     "tt_splat_convert": [_P, _I, _I, _I, _I, _I, _P, _P, _P],
     "tt_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tt_resolve_view": [_P, _P, _P, _I, _I, _I, _I, _P, _P],

@@ -26,7 +26,12 @@ the sort; 2 the tile alone, the ids a stream of their own:
                                  atomics), in int64 fixed point, then
                                  the conversion to f32; four launches;
                                  with `flow_off` (`flowWeight == 0`) the
-                                 view's 6 channels alone;
+                                 view's 6 channels alone; on a shard of a
+                                 frame split over ranks, the int64 sums
+                                 are summed over the ranks before the
+                                 conversion (`psum`), every rank at the
+                                 fixed-point steps of the whole frame's
+                                 rows (`adds_rows`);
   K3 `resolve` (csrc/resolve.cu) per pixel: order-independent blend of
                                  both grids, fade, the decayed flow `eff`;
                                  with `flow_off` the view alone
@@ -69,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from ..const import INERT
-from . import cuda_lib, fixed_point, not_ported, reorder_cuda
+from . import cuda_lib, fixed_point, reorder_cuda
 from .splat import composite_over
 from .tile_geom import HALF, PAD_LO_H, PAD_LO_W, TILE_H, TILE_W, pad_dims
 
@@ -366,38 +371,57 @@ SPLAT_QUEUE_HEAD = 2
 
 
 def splat(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw, pscale,
-          p0=None, rgba=None, flow_off=False):
+          p0=None, rgba=None, flow_off=False, adds_rows=None, reduce=None):
     """K2: expand each sorted segment into `samples` deposit points and
     accumulate both passes' box footprints. `keym_s`: the tile-sorted
     keys, `tile << idx_bits | id` (`_idx_bits`); `p0`: the sorted p0
     words, or None to derive p0 from p1 and the velocity; `rgba`: the
     sorted rgba8 words, or None to compute the colour model of a 1x1
     colour map from the scalars; `flow_off`: the view's channels alone.
+    `adds_rows`: the rows of the whole frame, whose adds the fixed-point
+    steps must leave room for (n by default; a shard passes the frame's
+    global row count); `reduce`: called on the int64 sums before their
+    conversion (a shard sums them over the ranks), its result converted.
     Returns the padded accumulator `f32[N_CHAN, hp, wp]` (`f32[N_VIEW, hp,
     wp]` with `flow_off`), every texel written by the kernels
     (`csrc/splat.cu`: the plan that finds each output tile's source rows
     in the sorted keys, the tile pass that adds each sample fitting its
     key tile's region in shared memory, the stray pass for the rest, all
-    in int64 fixed point, and the conversion to f32), the same bits on
-    every call with the same inputs."""
+    in int64 fixed point, and the conversion to f32, `splat_convert`),
+    the same bits on every call with the same inputs."""
+    adds_rows = p1.shape[0] if adds_rows is None else adds_rows
     tensors = [t for t in (scal, keym_s, p1, vl, p0, rgba) if t is not None]
     if cuda_lib.on_cpu(*tensors):
-        return splat_plain(scal, p1, vl, samples=samples, grid_hw=grid_hw,
-                           pscale=pscale, p0=p0, rgba=rgba,
-                           flow_off=flow_off)
-    return splat_planned(scal, keym_s, p1, vl, idx_bits=idx_bits,
-                         samples=samples, grid_hw=grid_hw, pscale=pscale,
-                         p0=p0, rgba=rgba, flow_off=flow_off)[0]
+        sums = splat_sums_plain(scal, p1, vl, samples=samples,
+                                grid_hw=grid_hw, pscale=pscale, p0=p0,
+                                rgba=rgba, flow_off=flow_off,
+                                adds_rows=adds_rows)
+    else:
+        sums = splat_planned(scal, keym_s, p1, vl, idx_bits=idx_bits,
+                             samples=samples, grid_hw=grid_hw, pscale=pscale,
+                             p0=p0, rgba=rgba, flow_off=flow_off,
+                             adds_rows=adds_rows)[0]
+    if reduce is not None:
+        sums = reduce(sums)
+    return splat_convert(scal, sums, samples=samples, adds_rows=adds_rows,
+                         counter=_variant("splat", p0 is not None,
+                                          rgba is not None,
+                                          flow_off=flow_off))
 
 
 def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
-                  pscale, p0=None, rgba=None, flow_off=False):
-    """`splat`'s four launches on CUDA tensors: `(accum, info, queue)`,
-    the accumulator and the plan it ran (per tile `SPLAT_INFO` words: the
-    run starts of its source tiles above-left, above, left and its own,
-    and the end of its own, at 0-5, its parts at 6, its weighted rows at
-    7; the queue's counts of parts and strays at 0 and 1)."""
+                  pscale, p0=None, rgba=None, flow_off=False,
+                  adds_rows=None):
+    """`splat`'s first three launches on CUDA tensors: `(sums, info,
+    queue)`, the int64 fixed-point sums `i64[N_CHAN or N_VIEW, hp, wp]`
+    (at the steps of `adds_rows`, n by default), which `splat_convert`
+    turns into the accumulator, and the plan the launches ran (per tile
+    `SPLAT_INFO` words: the run starts of its source tiles above-left,
+    above, left and its own, and the end of its own, at 0-5, its parts at
+    6, its weighted rows at 7; the queue's counts of parts and strays at
+    0 and 1)."""
     n = p1.shape[0]
+    adds_rows = n if adds_rows is None else adds_rows
     h, w = grid_hw
     hp, wp = pad_dims(h, w)
     cuda_lib.check(scal, "scal", _F32, (32,))
@@ -409,11 +433,9 @@ def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
     chunk = split_chunk(n)
     cap = queue_cap(n, chunk)
     dev = p1.device
-    # The fixed-point sums of the planes from global channel ch0 on, then
-    # their f32 conversion.
+    # The fixed-point sums of the planes from global channel ch0 on.
     ch0 = first_channel(flow_off)
     fix = torch.empty((N_CHAN - ch0, hp, wp), dtype=torch.int64, device=dev)
-    accum = torch.empty((N_CHAN - ch0, hp, wp), dtype=_F32, device=dev)
     info = torch.empty(SPLAT_INFO * tiles_y * tiles_x, dtype=_I32,
                        device=dev)
     queue = torch.empty(SPLAT_QUEUE_HEAD + 2 * cap, dtype=_I32, device=dev)
@@ -422,12 +444,32 @@ def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
     cuda_lib.launch("tt_splat_plan", name, keym_s, n, idx_bits, hp, wp,
                     chunk, ch0, info, queue, cap, fix)
     args = (scal, keym_s, p1, vl, p0, rgba, n, samples, h, w, hp, wp,
-            idx_bits, float(pscale), ch0)
+            idx_bits, float(pscale), ch0, adds_rows)
     cuda_lib.launch("tt_splat_tiles", name, *args, info, queue, cap, fix)
     cuda_lib.launch("tt_splat_strays", name, *args, queue, fix)
-    cuda_lib.launch("tt_splat_convert", name, scal, n, samples, hp, wp, ch0,
-                    fix, accum)
-    return accum, info, queue
+    return fix, info, queue
+
+
+def splat_convert(scal, sums, *, samples, adds_rows, counter="splat"):
+    """K2's fourth launch: the int64 sums `i64[planes, hp, wp]` (all
+    N_CHAN channels, or the view's N_VIEW under `flow_off`: the planes say
+    which) as the f32 accumulator, each plane at its global channel's
+    fixed-point step for `adds_rows` rows of `samples` samples. Counts
+    under `counter`, the K2 variant whose sums these are. On CPU tensors,
+    `convert_plain` (a part of the plain splat, counted with it)."""
+    if cuda_lib.on_cpu(scal, sums):
+        return convert_plain(scal, sums, samples=samples,
+                             adds_rows=adds_rows)
+    planes, hp, wp = sums.shape
+    if planes not in (N_CHAN, N_VIEW):
+        raise ValueError(f"sums: {planes} planes, want {N_CHAN} or "
+                         f"{N_VIEW}")
+    cuda_lib.check(scal, "scal", _F32, (32,))
+    cuda_lib.check(sums, "sums", torch.int64, (planes, hp, wp))
+    accum = torch.empty((planes, hp, wp), dtype=_F32, device=sums.device)
+    cuda_lib.launch("tt_splat_convert", counter, scal, adds_rows, samples,
+                    hp, wp, N_CHAN - planes, sums, accum)
+    return accum
 
 
 def _scalar_colors(scal, vx, vy, p1x, p1y, grid_hw):
@@ -582,29 +624,54 @@ def add_bounds(scal):
                         log])
 
 
-def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
-                rgba=None, flow_off=False):
-    """Plain version of K2: the same per-sample arithmetic, deposited with
-    one `index_add_` per channel group (both, or the view's with
-    `flow_off`) and footprint offset (`_box_deposits`), each deposit
-    quantised at its global channel's static fixed-point step and summed
-    in int64 as the kernel sums (`fixed_point`; n x samples adds a texel
-    at most), so the same bits whatever the order of the adds."""
+def _shifts(scal, planes, adds_rows, samples):
+    """K2's fixed-point shift of each of `planes` planes (the last ones of
+    the N_CHAN channels) for `adds_rows` rows of `samples` samples."""
+    return fixed_point.fixed_shift(add_bounds(scal)[N_CHAN - planes:],
+                                   adds_rows * samples)
+
+
+def splat_sums_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
+                     rgba=None, flow_off=False, adds_rows=None):
+    """The plain version of K2's first three launches: the same
+    per-sample arithmetic, deposited with one `index_add_` per channel
+    group (both, or the view's with `flow_off`) and footprint offset
+    (`_box_deposits`), each deposit quantised at its global channel's
+    static fixed-point step and summed in int64 as the kernel sums
+    (`fixed_point`; `adds_rows` x samples adds a texel at most,
+    `adds_rows` n by default), so the same bits whatever the order of the
+    adds. Returns `i64[N_CHAN or N_VIEW, hp, wp]`."""
     cuda_lib.plain_calls[_variant("splat", p0 is not None, rgba is not None,
                                   flow_off=flow_off)] += 1
     hp, wp = pad_dims(*grid_hw)
     _, _, groups = _splat_terms(scal, p1, vl, samples=samples,
                                 grid_hw=grid_hw, pscale=pscale, p0=p0,
                                 rgba=rgba, flow_off=flow_off)
-    ch0 = first_channel(flow_off)
-    planes = N_CHAN - ch0
-    shift = fixed_point.fixed_shift(add_bounds(scal)[ch0:],
-                                    p1.shape[0] * samples)
+    planes = N_CHAN - first_channel(flow_off)
+    shift = _shifts(scal, planes, p1.shape[0] if adds_rows is None
+                    else adds_rows, samples)
     accum = torch.zeros(planes * hp * wp, dtype=torch.int64,
                         device=p1.device)
     _add_boxes(accum, groups, hp, wp, scale=fixed_point.pow2(shift))
-    return fixed_point.dequantise(accum.reshape(planes, hp * wp),
-                                  shift[:, None]).reshape(planes, hp, wp)
+    return accum.reshape(planes, hp, wp)
+
+
+def convert_plain(scal, sums, *, samples, adds_rows):
+    """Plain version of K2's conversion (`splat_convert`)."""
+    planes = sums.shape[0]
+    shift = _shifts(scal, planes, adds_rows, samples)
+    return fixed_point.dequantise(sums.reshape(planes, -1),
+                                  shift[:, None]).reshape(sums.shape)
+
+
+def splat_plain(scal, p1, vl, *, samples, grid_hw, pscale, p0=None,
+                rgba=None, flow_off=False, adds_rows=None):
+    """Plain version of K2: `splat_sums_plain`, then `convert_plain`."""
+    adds_rows = p1.shape[0] if adds_rows is None else adds_rows
+    return convert_plain(scal, splat_sums_plain(
+        scal, p1, vl, samples=samples, grid_hw=grid_hw, pscale=pscale,
+        p0=p0, rgba=rgba, flow_off=flow_off, adds_rows=adds_rows),
+        samples=samples, adds_rows=adds_rows)
 
 
 # --- K2's tile partition -----------------------------------------------------
@@ -695,7 +762,8 @@ def _merge_or_sort(keym, reorder, n_tiles, idx_bits):
 
 
 def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
-                   pscale, reorder=None, flow_off=False):
+                   pscale, reorder=None, flow_off=False, adds_rows=None,
+                   reduce=None):
     """Sort the segments by their key, then splat them (K2).
 
     `words`: K1's `(keym, p1, vl, p0, rgba)`, p0 and rgba None when not
@@ -712,7 +780,8 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
     `p1_from_ride`: the same f32 pixel transform, clip and round as the
     pack, so bit-identical); without it, p1 is sorted. `reorder`: the
     merge reorder's carry (`_merge_or_sort`) in place of the sort.
-    `flow_off`: the view's channels alone (K2's view-only launch).
+    `flow_off`: the view's channels alone (K2's view-only launch);
+    `adds_rows`, `reduce`: K2's (`splat`).
     Returns `(accum, aux, ride_sorted, carry)`: aux = `(idx_s, p1_s)`, the
     sorted row ids (from the key in modes 1 and 3, sorted along in mode 2)
     and p1 words (None in mode 0), ride_sorted = the sorted ride streams
@@ -746,7 +815,8 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
         ride_s = [x_s, y_s, *(r[perm] for r in ride[2:]), vl_s]
     accum = splat(scal, keym_s, p1_s, vl_s, idx_bits=_idx_bits(gather),
                   samples=samples, grid_hw=grid_hw, pscale=pscale, p0=p0_s,
-                  rgba=rgba_s, flow_off=flow_off)
+                  rgba=rgba_s, flow_off=flow_off, adds_rows=adds_rows,
+                  reduce=reduce)
     aux = None
     if gather == 2:
         aux = (idx[perm], p1_s)
@@ -764,7 +834,7 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
                           flow_decay=0.0, base_color=None, flow_color=None,
                           derive_p0=False, view_size=None,
                           mapped_scalar=None, raw_accum=False, reorder=None,
-                          flow_off=False):
+                          flow_off=False, adds_rows=None, reduce=None):
     """Pack (K1), sort and splat (K2) both passes of a draw.
 
     The arguments are those of the JAX function. `derive_p0=True` (with
@@ -779,7 +849,10 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
     (resident frames): the merge reorder's carry, used where
     `reorder_cuda.merge_eligible` admits the stream. `flow_off` (with
     `raw_accum`, as the JAX function asserts) drops the flow channels: the
-    accumulator holds the view's six. Returns `(accum f32[11 or 6, hp,
+    accumulator holds the view's six. `adds_rows`, `reduce`: K2's
+    (`splat`): on a shard, the frame's global row count and the sum of
+    the int64 sums over the ranks, so that the accumulator, and the parts
+    cut from it, are the whole frame's. Returns `(accum f32[11 or 6, hp,
     wp], None, aux, ride_sorted)` with `raw_accum`,
     else `(flow_parts, view_parts, aux, ride_sorted)`, each part
     `(num, wsum, logt)` over the content grid (`draw_pallas.py:1030-1035`);
@@ -825,7 +898,8 @@ def fused_draw_accumulate(grid_hw, p0_pix, p1_pix, vel, pos_ndc, mapped,
                  mapped=mapped, gather=gather)
     accum, aux, ride_s, carry = _bin_and_splat(
         scal, words, ride, idx=idx, gather=gather, samples=samples,
-        grid_hw=grid_hw, pscale=pscale, reorder=merge, flow_off=flow_off)
+        grid_hw=grid_hw, pscale=pscale, reorder=merge, flow_off=flow_off,
+        adds_rows=adds_rows, reduce=reduce)
     tail = () if reorder is None else (carry,)
     if raw_accum:
         return (accum, None, aux, ride_s, *tail)
@@ -1080,7 +1154,7 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
                idx_bound=None, psum=None, derive_p0=False, view_size=None,
                mapped_scalar=None, resolve="kernel", read_time=None,
                want_eff=False, flow_off=False, reorder=None,
-               host_widths=None):
+               host_widths=None, adds_rows=None):
     """Full fused draw: accumulate (K1, sort, K2) with the in-kernel line
     widths and colour model, then resolve both blends: with K3
     (`resolve="kernel"`, widths <= KMAX_WIDTH, which also applies
@@ -1097,11 +1171,24 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
     JAX function does (`draw_pallas.py:1610`): with K3 and without
     `want_eff`. Then K2 and K3 run their view-only variants and `new_flow`
     is the incoming `flow`, untouched; the XLA tail keeps all 11
-    channels."""
+    channels.
+
+    `psum` (a shard of a frame split over ranks): a process group, or a
+    callable that sums a tensor over the ranks (`parallel.comm.reducer`).
+    K1, the sort and K2's first three launches run on this shard's rows,
+    at the fixed-point steps of `adds_rows` rows (the frame's global row
+    count); the int64 sums are summed over the ranks, once, and then
+    converted, and every rank resolves the whole frame's accumulator (K3,
+    or the XLA tail). Integer adds are associative and every rank
+    quantises at the single device's steps, so the accumulator equals
+    that of one device drawing all the rows, bit for bit (the JAX
+    function sums the f32 accumulator, `draw_pallas.py:1626-1627`)."""
     if resolve not in ("kernel", "xla"):
         raise ValueError(f"unknown resolve: {resolve}")
+    reduce = None
     if psum is not None:
-        raise not_ported("the sharded draw", 12)
+        from ..parallel.comm import reducer
+        reduce = reducer(psum)
     kernel = resolve == "kernel"
     flow_off = flow_off and kernel and not want_eff
     out = fused_draw_accumulate(
@@ -1114,7 +1201,7 @@ def fused_draw(flow, view, p0_pix, p1_pix, vel, pos_ndc, mapped, live,
         sin_decay=torch.sin(time * params["flowDecay"]),
         flow_decay=params["flowDecay"], base_color=params["baseColor"],
         flow_color=params["flowColor"], raw_accum=kernel, flow_off=flow_off,
-        reorder=reorder)
+        reorder=reorder, adds_rows=adds_rows, reduce=reduce)
     aux, ride_s, tail = out[2], out[3], out[4:]
     if kernel:
         res = resolve_fused(

@@ -6,6 +6,7 @@ raised. The comparison is `torch_parity.compare`.
 """
 
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -112,13 +113,28 @@ def test_facades_with_one_seed_draw_the_same_numbers():
 
 
 def test_unported_branches_raise():
-    """The sharded draw (ROADMAP item 12) is the port's one branch still
-    to port; it raises and names its item."""
-    cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128))
-    eng = tengine.Tendrils(cfg, device="cpu").setup()
-    with pytest.raises(NotImplementedError, match="sharded.*item 12"):
-        tengine.draw_sim(eng.sim, eng.params(), 0.0, cfg, eng._view_size,
-                         axis_name="p")
+    """No branch is left unported: the sharded draw (ROADMAP item 12), the
+    last one that raised, runs, and no module of the package raises a
+    not-ported error any more. `axis_name` takes the sum over the ranks;
+    with one rank's (the identity) the fused and the generic draw are the
+    unsharded draws bit for bit."""
+    package = pathlib.Path(tengine.__file__).parent
+    assert not [p for p in package.rglob("*.py")
+                if "not_ported" in p.read_text()]
+    for fused in (True, False):
+        cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128),
+                                   fused_draw=fused)
+        eng = tengine.Tendrils(cfg, device="cpu").setup()
+        eng.spawn_shader(lambda p, e: tspawn.ball(p, e._frag_xy, 0.6, 0.01))
+        eng.step()
+        t = torch.tensor(16.0)
+        one = tengine.draw_sim(eng.sim, eng.params(), t, cfg,
+                               eng._view_size)
+        ranks = tengine.draw_sim(eng.sim, eng.params(), t, cfg,
+                                 eng._view_size, axis_name=lambda x: x)
+        assert (one.flow[3] > 0).any()
+        for name in ("flow", "view"):
+            assert torch.equal(getattr(one, name), getattr(ranks, name))
 
 
 def test_generic_draw_runs():

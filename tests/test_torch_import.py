@@ -1,8 +1,9 @@
 """`import tendrils_tpu_torch` loads neither JAX nor Triton, at any depth:
 the package, its engine modules, its application layer (`app`,
 `animate`, `audio`, `io` and the CLI's module, `__main__`, imported, not
-run) and its host modules (`geom`, `native`, `utils`, `ops.physics`,
-`ops.glsl_utils`)."""
+run), its host modules (`geom`, `native`, `utils`, `ops.physics`,
+`ops.glsl_utils`) and its multi-device package (`parallel`: `comm`,
+`sharding`, `spatial`, `dryrun`)."""
 
 import os
 import pathlib
@@ -27,7 +28,11 @@ def test_port_imports_no_jax_or_triton():
             "tendrils_tpu_torch.ops.physics, "
             "tendrils_tpu_torch.ops.glsl_utils, "
             "tendrils_tpu_torch.ops.render, "
-            "tendrils_tpu_torch.ops.fixed_point\n"
+            "tendrils_tpu_torch.ops.fixed_point, "
+            "tendrils_tpu_torch.parallel, tendrils_tpu_torch.parallel.comm, "
+            "tendrils_tpu_torch.parallel.sharding, "
+            "tendrils_tpu_torch.parallel.spatial, "
+            "tendrils_tpu_torch.parallel.dryrun\n"
             "print(sorted(m for m in ('jax', 'triton', 'tendrils_tpu') "
             "if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -7,10 +7,12 @@ that the sums do not depend on the order of the adds; the grid is
 f32(sum) * 2^-S_k. S_k is the largest shift with bound_k * adds * 2^S_k <=
 2^FIX_BITS (`common.cuh`: `fixed_shift`), where bound_k is the most one add
 of the channel can weigh (K2: `add_bound`, static; K9: reduced from the
-samples on the device) and `adds` the most adds one texel receives (K2: n x
-samples, K9: M). The shift rule and K2's bounds run only in CUDA: below
-they are transcribed into Python, with the constants and K2's bound table
-read from the CUDA source. The tests hold the transcription to the worst
+samples on the device) and `adds` the most adds one texel receives (K2:
+adds_rows x samples, adds_rows a launch parameter, the launch's n by
+default and the frame's global row count on a shard of a frame split over
+ranks; K9: M). The shift rule and K2's bounds run only in CUDA: below
+they are transcribed into Python, with the constants, K2's bound table
+and K2's shift rule read from the CUDA source. The tests hold the transcription to the worst
 case of the configurations (n x samples up to 2^25), check that every
 deposit of the plain splats' arithmetic lies within its bound, and emulate
 the integer sums in numpy on small seeded splats: two orders of the adds
@@ -61,6 +63,13 @@ def fixed_shift(bound, adds):
     2^FIX_BITS (frexp: |bound| x adds < 2^e), within +-FIX_CAP."""
     e = math.frexp(abs(float(np.float32(bound))) * float(adds))[1]
     return min(max(FIX_BITS - e, -FIX_CAP), FIX_CAP)
+
+
+def channel_shift(speed_limit, k, adds_rows, samples):
+    """`splat.cu: channel_shift`: K2's shift of global channel k for a
+    frame of `adds_rows` rows x `samples` samples (`test_k2_adds_rows_
+    sets_the_step` holds the transcription to the source)."""
+    return fixed_shift(add_bound(speed_limit, k), adds_rows * samples)
 
 
 def add_bound(speed_limit, k):
@@ -128,7 +137,8 @@ def test_transcription_constants_are_the_kernels():
                                   2.0 ** s.double().numpy())
     src = (CSRC / "splat_points.cu").read_text()
     assert "fixed_shift(__int_as_float(bits[k]), m)" in src
-    assert "fixed_shift(add_bound(scal, k), (long long)n * samples)" in SPLAT
+    assert ("fixed_shift(add_bound(scal, k), (long long)adds_rows * samples)"
+            in SPLAT)
 
 
 @pytest.mark.parametrize("speed_limit", [1e-6, 0.01, 0.03, 1.0, 40.0])
@@ -265,7 +275,7 @@ def test_k2_fixed_point_sums_are_order_free(variant):
     n = 3000
     scal, p1, vl, kw = _stream(variant, n, 2)
     index, value = _k2_deposits(scal, p1, vl, kw)
-    shifts = [fixed_shift(add_bound(SPEED_LIMIT, k), n * kw["samples"])
+    shifts = [channel_shift(SPEED_LIMIT, k, n, kw["samples"])
               for k in range(N_CHAN)]
     hp, wp = pad_dims(*GRID)
     size = N_CHAN * hp * wp
@@ -276,6 +286,57 @@ def test_k2_fixed_point_sums_are_order_free(variant):
     np.testing.assert_array_equal(a[1], b[1])
     want = draw_cuda.splat_plain(scal, p1, vl, **kw).numpy()
     _equal_to_plain(a[1], want, N_CHAN)
+
+
+def test_k2_adds_rows_sets_the_step():
+    """K2's steps come from `adds_rows` (a launch parameter: n by default,
+    the frame's global row count on a shard), read from `splat.cu`: its
+    `channel_shift` and every pass (the tile pass, the strays, the
+    conversion) take `adds_rows`, never a launch's own n. With adds_rows
+    = 2n > n each channel's step is the smaller fixed_shift(bound, 2n x
+    samples): the emulated sums at those shifts are `splat_sums_plain`'s
+    at `adds_rows=2n` bit for bit, converted `splat_plain`'s. And the
+    sharded draw's premise: two halves of a stream, each summed at
+    adds_rows = n, add up to the whole stream's int64 sums bit for bit."""
+    body = re.search(r"int channel_shift\(.*?\{(.*?)\n\}", SPLAT,
+                     re.S).group(1)
+    assert body.split() == ["return", "fixed_shift(add_bound(scal,", "k),",
+                            "(long", "long)adds_rows", "*", "samples);"]
+    calls = [re.sub(r"\s+", " ", c) for c in re.findall(
+        r"pow2f\(-?channel_shift\((.*?)\)\)", SPLAT, re.S)]
+    assert len(calls) == 4, calls
+    for c in calls:
+        assert c.split(", ")[-2] in ("P.adds_rows", "adds_rows"), c
+    assert "wp / TILE_W, bits, pscale, ch0, adds_rows};" in SPLAT
+    assert SPLAT.count("bits, pscale, ch0, adds_rows)") == 2
+    n = 3000
+    scal, p1, vl, kw = _stream("splat_rgba", n, 8)
+    samples = kw["samples"]
+    index, value = _k2_deposits(scal, p1, vl, kw)
+    hp, wp = pad_dims(*GRID)
+    for k in range(N_CHAN):
+        assert (channel_shift(SPEED_LIMIT, k, 2 * n, samples)
+                == channel_shift(SPEED_LIMIT, k, n, samples) - 1)
+    shifts = [channel_shift(SPEED_LIMIT, k, 2 * n, samples)
+              for k in range(N_CHAN)]
+    total, grid = _emulate(index, value, shifts, N_CHAN * hp * wp,
+                           np.arange(index.size))
+    sums = draw_cuda.splat_sums_plain(scal, p1, vl, adds_rows=2 * n, **kw)
+    np.testing.assert_array_equal(sums.numpy().reshape(-1), total)
+    _equal_to_plain(grid, draw_cuda.splat_plain(
+        scal, p1, vl, adds_rows=2 * n, **kw).numpy(), N_CHAN)
+    half = n // 2
+    parts = [draw_cuda.splat_sums_plain(
+        scal, p1[rows], vl[rows], adds_rows=n,
+        **{k: v[rows] if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()})
+        for rows in (slice(None, half), slice(half, None))]
+    whole = draw_cuda.splat_sums_plain(scal, p1, vl, **kw)
+    assert torch.equal(parts[0] + parts[1], whole)
+    assert not torch.equal(parts[0], whole)
+    assert torch.equal(draw_cuda.convert_plain(
+        scal, parts[0] + parts[1], samples=samples, adds_rows=n),
+        draw_cuda.splat_plain(scal, p1, vl, **kw))
 
 
 @pytest.mark.parametrize("m", [480, 20000])
@@ -338,9 +399,10 @@ def _view_launch():
     # The strays: the flow group only when ch0 == 0, the view's steps
     # N_FLOW + k into the same planes.
     assert "if (P.ch0 == 0 && group_channels<N_FLOW>(P, i, g, ch))" in SPLAT
-    assert "channel_shift(P.scal, N_FLOW + k, P.n, P.samples)" in SPLAT
+    assert "channel_shift(P.scal, N_FLOW + k, P.adds_rows, P.samples)" \
+        in SPLAT
     # The conversion: scratch plane p is global channel ch0 + p.
-    assert "channel_shift(scal, ch0 + (int)(i / plane4), n," in SPLAT
+    assert "channel_shift(scal, ch0 + (int)(i / plane4)," in SPLAT
     view_plane0 = N_FLOW - ch0
     return planes, groups, view_plane0, (
         lambda p: N_FLOW + (p - view_plane0),  # tile pass and strays
