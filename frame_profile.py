@@ -3,6 +3,7 @@
     python3 frame_profile.py [--model M] [--frames 20] [--classic]
                              [--color-maps] [--paused] [--merge] [--show]
                              [--targets] [--generic] [--backend xla]
+    python3 frame_profile.py --cell CELL [--seed S] [--frames 20]
     python3 frame_profile.py --demo PRESET [--quality Q] [--frames 20]
                              [--backend xla]
     python3 frame_profile.py --gathers
@@ -37,7 +38,11 @@ quality `--quality`, 0 by default: 262,144 particles; 2: 4,194,304),
 `PRESET` applied, each frame a `render()` fed as `chip_smoke.py` phase 15
 feeds it (`chip_smoke.demo_frame`: the 480x640 camera and 4 pointers);
 reading 3 then also times the demo's host stages (the camera frame's f32
-grid, the audio sampling). Prints the readings of the same frame:
+grid, the audio sampling). `--cell CELL` drives a cell of the benchmark
+instead (`benchmark/`: its configuration's engine and spawn, the rows in
+seed `S`'s order, and its traffic mix's frames) in the benchmark's closed
+loop, a frame started once the frame two before it has ended. Prints the
+readings of the same frame:
 
   1. wall ms/frame of the plain loop (the end-to-end number);
   2. a `torch.profiler` trace of `--frames` frames: device time by kernel
@@ -45,16 +50,20 @@ grid, the audio sampling). Prints the readings of the same frame:
      each of the port's kernels by its device ms a launch (to hold
      against its warm and cold times alone in `chip_smoke.py`), and
      the device's busy share of the wall time (kernel, copy and fill time
-     over the traced span);
+     over the traced span); then the same trace by the port's spans
+     (`utils.profiling.by_span`): each span's host ms, the device ms of
+     what it launched, its launches and its host ms in synchronising
+     calls, a frame; each layer with the spans nested in it (the logic
+     step against its least time, the draw, the sort, the post stage);
+     and the share of the device time that no span holds. With `--merge`
+     the host's wait for the merge's `ok` is span `draw.wait`'s host
+     time, beside the merged and fallback counts;
   3. each stage alone: the device synchronised before and after it, so
      its wall time is its own host and device time with no overlap. For
      this reading the script wraps the stage functions of the port's
      modules in place and restores them afterwards; the package itself
      never does this. Stages that run inside another are listed under it
-     ("of which") and not counted twice;
-  4. with `--merge`: the plain loop again, with only the host read of the
-     merge's `ok` timed (no synchronisation added): the host's wait for
-     the device to reach the merge, and the merged and fallback counts.
+     ("of which") and not counted twice.
 
 `--gathers` times the force gathers alone, by device time over 20
 back-to-back calls (`chip_smoke.time_calls`), at the shapes their frames
@@ -91,6 +100,8 @@ import time
 
 import torch
 
+from tendrils_tpu_torch.utils import profiling
+
 
 def _stage_timers(acc, generic=False):
     """Wrap the io frame's stages so that each runs alone between two
@@ -99,7 +110,7 @@ def _stage_timers(acc, generic=False):
     draw's render colours and is listed under it."""
     from tendrils_tpu_torch import audio, engine, feeds, flow_line, media
     from tendrils_tpu_torch.app import demo
-    from tendrils_tpu_torch.ops import draw_cuda, optical_flow as of_ops
+    from tendrils_tpu_torch.ops import optical_flow as of_ops
     from tendrils_tpu_torch.ops import post, render, reorder_cuda, sample
     from tendrils_tpu_torch.ops import splat
 
@@ -145,7 +156,6 @@ def _stage_timers(acc, generic=False):
          + "colour-map lookup per particle"),
         (reorder_cuda, "merge_reorder",
          NESTED + "merge reorder (K10 + C sort + K11)"),
-        (draw_cuda, "_read_ok", NESTED + "host read of the merge's ok"),
         (demo, "image_to_grid",
          "camera frame to an f32 grid (host, the demo's feed_video_frame)"),
         (audio.AudioTrigger, "sample", "audio sampling (host numpy)"),
@@ -156,20 +166,79 @@ def _stage_timers(acc, generic=False):
 NESTED = "  of which: "
 
 
-def _ok_timer(acc):
-    """Time the host read of the merge's `ok` without synchronising
-    around it: its wall time is the host's wait for the device."""
-    from tendrils_tpu_torch.ops import draw_cuda
-    fn = draw_cuda._read_ok
+# The logic step's contract, bytes a particle: the particles f32[4, N],
+# the targets' xy f32[2, N], the carried force f32[2, N] and the ids
+# i32[N] read once, the particles f32[4, N] written once.
+LOGIC_BYTES = 4 * 4 + 2 * 4 + 2 * 4 + 4 + 4 * 4
 
-    def run(ok):
-        t0 = time.perf_counter()
-        out = fn(ok)
-        acc["ok"] += time.perf_counter() - t0
-        return out
 
-    draw_cuda._read_ok = run
-    return fn
+def _layer(by, name):
+    """Span `name` with the spans nested in it by name, as one
+    `SpanTimes`."""
+    t = profiling.SpanTimes()
+    for k, v in by.items():
+        if k and (k == name or k.startswith(name + ".")):
+            t.device += v.device
+            t.launches += v.launches
+            t.sync_us += v.sync_us
+    return t
+
+
+def print_spans(events, n, particles):
+    """Reading 2 by the port's spans: `events` of `n` frames of
+    `particles` particles."""
+    import chip_smoke as cs
+    by = profiling.by_span(events)
+    print("    by span, a frame: host ms, device ms, launches, sync ms")
+    for name in sorted(by, key=lambda k: k or "~"):
+        t = by[name]
+        print(f"      {name or '(no span)':14} {t.host_us / 1e3 / n:9.4f} "
+              f"{t.device_us / 1e3 / n:9.4f} {t.launches / n:7.1f} "
+              f"{t.sync_us / 1e3 / n:9.4f}")
+    layers = {k: _layer(by, profiling.PREFIX + k)
+              for k in ("logic", "draw", "draw.sort", "post")}
+    print("    layers, device ms a frame: " + ", ".join(
+        f"{k} {t.device_us / 1e3 / n:.4f}" for k, t in layers.items()))
+    logic_ms = layers["logic"].device_us / 1e3 / n
+    least = cs.bound(LOGIC_BYTES * particles, 0)[0]
+    print(f"    logic step: {layers['logic'].launches / n:.1f} launches a "
+          f"frame; its {LOGIC_BYTES} B a particle over "
+          f"{cs.HBM_BYTES_PER_S:.3g} B/s take {least:.4f} ms: "
+          + (f"{100 * least / logic_ms:.3f} %" if logic_ms else "no time"))
+    sync = sum(t.sync_us for k, t in by.items() if k) / 1e3 / n
+    every = profiling.SpanTimes(device=[d for t in by.values()
+                                        for d in t.device])
+    outside = by.get(None, profiling.SpanTimes()).device_us
+    print(f"    host sync in spans {sync:.4f} ms a frame; device time in no "
+          f"span {outside / 1e3 / n:.4f} ms a frame, "
+          f"{100 * outside / max(every.device_us, 1e-9):.3f} % of it all")
+    print("    longest idle gaps, ms, named span:host operation at their "
+          "start: " + "; ".join(f"{name} {ms:.4f}" for name, ms
+                                in _named_gaps(events, every.device)))
+    return by
+
+
+def _named_gaps(events, device, top=8):
+    """The `top` longest idle gaps of the device from the first span's
+    start to the end of its last operation in `device`, `(name, ms)`,
+    named by the innermost span and host operation holding their start."""
+    from torch.autograd import DeviceType
+    cpu = [(ev.name, ev.time_range.start, ev.time_range.end)
+           for ev in events if ev.device_type == DeviceType.CPU]
+    spans = [c for c in cpu if c[0].startswith(profiling.PREFIX)]
+    ops = [c for c in cpu if not c[0].startswith(profiling.PREFIX)]
+    if not spans or not device:
+        return []
+    t, gaps = min(s for _, s, _ in spans), []
+    for s, e in sorted(device):
+        if s > t:
+            gaps.append((t, s))
+        t = max(t, e)
+    gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:top]
+    starts = [a for a, _ in gaps]
+    return [(f"{sp or '-'}:{op or '-'}", (b - a) / 1e3) for (a, b), sp, op
+            in zip(gaps, profiling.innermost(spans, starts),
+                   profiling.innermost(ops, starts))]
 
 
 def k7_streams():
@@ -354,6 +423,8 @@ def main():
     ap.add_argument("--k9-k11", action="store_true")
     ap.add_argument("--generic", action="store_true")
     ap.add_argument("--backend", default="kernel", choices=("kernel", "xla"))
+    ap.add_argument("--cell", default=None)
+    ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device")
@@ -378,6 +449,12 @@ def main():
         demo.quality_change(args.quality)
         demo.apply_preset(args.demo)
         eng = demo.tendrils
+    elif args.cell:
+        from benchmark import cell, harness, traffic
+        c = cell.load(args.cell)
+        eng = cell.make_engine(harness.program_lib(), c.config, args.seed,
+                               "cuda")
+        feed = traffic.Feed(c.traffic, eng)
     else:
         eng = chip_smoke.config1() if args.model == "default-preview" \
             else models.build(args.model)
@@ -405,6 +482,8 @@ def main():
     if args.demo:
         def step(i):
             chip_smoke.demo_frame(demo, i)
+    elif args.cell:
+        step = feed.frame
     elif args.show:
         def step(i):
             chip_smoke.show_frame(eng, i)
@@ -413,12 +492,18 @@ def main():
     else:
         step = headless
     i = 0
+    ends = collections.deque(maxlen=2)
 
     def frames(k):
         nonlocal i
         for _ in range(k):
+            if args.cell and len(ends) == 2:
+                ends[0].synchronize()
             step(i)
             i += 1
+            if args.cell:
+                ends.append(torch.cuda.Event())
+                ends[-1].record()
         torch.cuda.synchronize()
 
     frames(3)
@@ -428,7 +513,12 @@ def main():
         t0 = time.perf_counter()
         frames(args.frames)
         walls.append((time.perf_counter() - t0) / args.frames * 1e3)
-    if args.demo:
+    if args.cell:
+        print(f"the benchmark's cell {args.cell} (seed {args.seed}, "
+              f"{eng.config.n} particles, {eng.config.view_res[0]}x"
+              f"{eng.config.view_res[1]}) on "
+              f"{torch.cuda.get_device_name(0)}")
+    elif args.demo:
         print(f"the demo's render() with {args.demo} at quality "
               f"{args.quality} ({eng.config.n} particles, "
               f"{eng.config.view_res[0]}x{eng.config.view_res[1]}, the "
@@ -444,6 +534,7 @@ def main():
           f"x {args.frames}: {', '.join(f'{w:.3f}' for w in walls)})")
 
     from torch.profiler import ProfilerActivity, profile
+    cuda_lib.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -452,8 +543,11 @@ def main():
     dev = collections.Counter()
     calls = collections.Counter()
     for ev in prof.key_averages():
+        # The port's spans show on the device as annotations, not work.
         if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and ev.self_device_time_total > 0:
+                and ev.self_device_time_total > 0 \
+                and not getattr(ev, "is_user_annotation", False) \
+                and not ev.key.startswith(profiling.PREFIX):
             dev[ev.key] += ev.self_device_time_total / 1e3
             calls[ev.key] += ev.count
     busy = sum(dev.values())
@@ -487,6 +581,12 @@ def main():
           "launches a frame: " + "; ".join(
               f"{name} {dev[k] / calls[k]:.4f} x {calls[k] / n:g}"
               for name, k in own))
+    by = print_spans(prof.events(), n, eng.config.n)
+    if args.merge:
+        wait = by.get("tt.draw.wait")
+        print("    the host's wait for the merge's ok (span draw.wait): "
+              + (f"{wait.host_us / 1e3 / n:.4f} ms a frame"
+                 if wait else "no span") + f"; {dict(cuda_lib.events)}")
 
     acc = collections.Counter()
     patched = _stage_timers(acc, generic=not fused_draw_ok(eng.config))
@@ -502,18 +602,6 @@ def main():
     top = sum(sec for name, sec in acc.items() if not name.startswith(NESTED))
     print(f"    {wall - top / n * 1e3:8.4f} ms/frame  the rest "
           "(params, scalars, the sim's bookkeeping, timer)")
-    if args.merge:
-        acc = collections.Counter()
-        read_ok = _ok_timer(acc)
-        cuda_lib.reset_counts()
-        t0 = time.perf_counter()
-        frames(n)
-        wall = (time.perf_counter() - t0) / n * 1e3
-        from tendrils_tpu_torch.ops import draw_cuda
-        draw_cuda._read_ok = read_ok
-        print(f"[4] plain loop {wall:.3f} ms/frame; the host read of the "
-              f"merge's ok {acc['ok'] / n * 1e3:.4f} ms/frame; "
-              f"{dict(cuda_lib.events)}")
 
 
 if __name__ == "__main__":

@@ -82,6 +82,7 @@ from .ops.gather_cuda import (bilinear_gather, bilinear_gather_keyed_p1,
 from .ops.reorder_cuda import MAXKEY, merge_eligible
 from .ops.tile_geom import HALF
 from .timer import Timer
+from .utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,21 +224,22 @@ def force_from_aux(flow, aux, params, read_time, cfg: EngineConfig,
     two q15 fields over +-speedLimit, the words are scattered back to row
     order by the unique row ids (`out[idx_s] = packed`; the JAX package
     un-sorts with `lax.sort`, outside any kernel) and decoded."""
-    inv_p = 1.0 / pos_scale_for(cfg.flow_shape)
-    if eff is None:
-        eff = _decayed(flow, read_time, params)
-    if not unsort:
-        return bilinear_gather_keyed_p1(eff, aux[1], inv_p=inv_p)
-    sl = torch.clamp(params["speedLimit"], min=1e-12)
-    packed = bilinear_gather_keyed_q15(eff.contiguous(), aux[1], 1.0 / sl,
-                                       inv_p=inv_p)
-    pk = torch.empty_like(packed)
-    pk[aux[0].to(torch.int64)] = packed
+    with span("draw"):
+        inv_p = 1.0 / pos_scale_for(cfg.flow_shape)
+        if eff is None:
+            eff = _decayed(flow, read_time, params)
+        if not unsort:
+            return bilinear_gather_keyed_p1(eff, aux[1], inv_p=inv_p)
+        sl = torch.clamp(params["speedLimit"], min=1e-12)
+        packed = bilinear_gather_keyed_q15(eff.contiguous(), aux[1],
+                                           1.0 / sl, inv_p=inv_p)
+        pk = torch.empty_like(packed)
+        pk[aux[0].to(torch.int64)] = packed
 
-    def unq(q):
-        return (q.to(torch.float32) * (2.0 / HALF) - 1.0) * sl
+        def unq(q):
+            return (q.to(torch.float32) * (2.0 / HALF) - 1.0) * sl
 
-    return torch.stack([unq(pk & HALF), unq(pk >> 15)])
+        return torch.stack([unq(pk & HALF), unq(pk >> 15)])
 
 
 def initial_force(sim: state_mod.SimState, params, cfg: EngineConfig,
@@ -265,48 +267,49 @@ def step_sim(sim: state_mod.SimState, params, time, dt, cfg: EngineConfig,
     (host-known `flowWeight == 0`, `flow_force_unused`): the flow term is
     exactly zero, the parameter variance being multiplicative (ref
     `src/logic.frag:41-43`), so nothing is decayed or gathered."""
-    if cfg.gather_backend not in ("xla", "kernel"):
-        raise ValueError(f"unknown gather backend: {cfg.gather_backend}")
-    uv, index01, _ = state_mod.particle_coords_from_idx(sim.idx,
-                                                        cfg.root_num)
-    flows = flow_force_fn = None
-    if flow_off:
+    with span("logic"):
+        if cfg.gather_backend not in ("xla", "kernel"):
+            raise ValueError(f"unknown gather backend: {cfg.gather_backend}")
+        uv, index01, _ = state_mod.particle_coords_from_idx(sim.idx,
+                                                            cfg.root_num)
+        flows = flow_force_fn = None
+        if flow_off:
 
-        def flow_force_fn(pos_screen):
-            del pos_screen
-            return 0.0
-    elif sim.force is not None:
-        # Carried force: gathered at the end of the previous frame from its
-        # final flow at these exact positions. Consumed once.
-        force = sim.force
+            def flow_force_fn(pos_screen):
+                del pos_screen
+                return 0.0
+        elif sim.force is not None:
+            # Carried force: gathered at the end of the previous frame from its
+            # final flow at these exact positions. Consumed once.
+            force = sim.force
 
-        def flow_force_fn(pos_screen):
-            del pos_screen
-            return force
-    elif cfg.gather_backend == "kernel":
-        # Decay-then-interpolate matches the reference's interpolate-then-
-        # decay but where stale and live texels mix (both ~0 there).
-        eff_pyr = flow_pyramid(_decayed(sim.flow, time, params),
-                               cfg.flow_levels)
+            def flow_force_fn(pos_screen):
+                del pos_screen
+                return force
+        elif cfg.gather_backend == "kernel":
+            # Decay-then-interpolate matches the reference's interpolate-then-
+            # decay but where stale and live texels mix (both ~0 there).
+            eff_pyr = flow_pyramid(_decayed(sim.flow, time, params),
+                                   cfg.flow_levels)
 
-        def flow_force_fn(pos_screen):
-            u = pos_screen * 0.5 + 0.5
-            force = total = 0.0
-            for level, grid in enumerate(eff_pyr):
-                _, h, w = grid.shape
-                factor = 1.0 / (level + 1.0)
-                force = force + bilinear_gather(
-                    grid, u[:, 0] * w, u[:, 1] * h) * factor
-                total = total + factor
-            return force / total
-    else:
-        flows = flow_pyramid(sim.flow, cfg.flow_levels)
+            def flow_force_fn(pos_screen):
+                u = pos_screen * 0.5 + 0.5
+                force = total = 0.0
+                for level, grid in enumerate(eff_pyr):
+                    _, h, w = grid.shape
+                    factor = 1.0 / (level + 1.0)
+                    force = force + bilinear_gather(
+                        grid, u[:, 0] * w, u[:, 1] * h) * factor
+                    total = total + factor
+                return force / total
+        else:
+            flows = flow_pyramid(sim.flow, cfg.flow_levels)
 
-    new_particles = logic.step_particles(
-        sim.particles, flows, sim.targets, params, uv, index01, view_size,
-        time, dt, flow_force_fn=flow_force_fn)
-    return dataclasses.replace(sim, particles=new_particles,
-                               previous=sim.particles, force=None)
+        new_particles = logic.step_particles(
+            sim.particles, flows, sim.targets, params, uv, index01, view_size,
+            time, dt, flow_force_fn=flow_force_fn)
+        return dataclasses.replace(sim, particles=new_particles,
+                                   previous=sim.particles, force=None)
 
 
 def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
@@ -365,112 +368,113 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
     Returns `(sim', aux[, eff])` with `want_aux` (aux = (sorted row ids,
     sorted p1 words); `eff` with `want_eff` when no force was gathered),
     else `sim'`, as the JAX function does."""
-    if not fused_draw_ok(cfg):
-        if want_aux or want_force:
-            raise ValueError("want_aux and want_force need the fused draw "
-                             "(carry_enabled)")
-        return _draw_generic(sim, params, time, cfg, view_size,
-                             psum=axis_name)
-    resident = resident and want_aux
-    if want_force and not resident:
-        raise ValueError("want_force requires the resident draw "
-                         "(resident=True with want_aux)")
-    pos = sim.particles[:2]
-    vel = sim.particles[2:]
-    prev_pos = sim.previous[:2]
-    alive = ((pos[0] != INERT) | (pos[1] != INERT)) & \
-            ((prev_pos[0] != INERT) | (prev_pos[1] != INERT))
-    h, w = cfg.view_res
-    mapped = mapped_scalar = None
-    if resident and cfg.color_map_res == (1, 1):
-        # The whole render colour model runs in the splat.
-        mapped_scalar = sim.color_map[:, 0, 0] * params["colorMapAlpha"]
-    else:
-        colormap_uv = state_mod.particle_coords_from_idx(
-            sim.idx, cfg.root_num)[2]
-        mapped = sample.sample_uv(sim.color_map, colormap_uv.T) \
-            * params["colorMapAlpha"]
-    p1 = coords.clip_to_pixel(
-        torch.stack([pos[0] * view_size[0], pos[1] * view_size[1]], dim=-1),
-        (w, h))
-    p0 = None
-    if not resident:
-        p0 = coords.clip_to_pixel(
-            torch.stack([prev_pos[0] * view_size[0],
-                         prev_pos[1] * view_size[1]], dim=-1), (w, h))
-    view0 = sim.view[0]
-    if not fast_resolve:
-        # K3 clears and fades in-kernel; the XLA tail's caller does it.
-        view0 = render.fade_fill(view0 * (1.0 - params["autoClearView"]),
-                                 params["fadeColor"] * params["autoFade"])
-    idx = ride = None
-    targets_live = resident and targets_live
-    if resident:
-        # The exact positions ride the sort; live targets ride beside them,
-        # inert ones do not (the buffer passes through untouched).
-        idx, ride = sim.idx, [sim.particles[0], sim.particles[1]]
-        if targets_live:
-            ride += [sim.targets[0], sim.targets[1]]
-    elif want_aux:
-        # The aux id is the ROW number: the force un-sorts to row order.
-        idx = torch.arange(pos.shape[1], dtype=torch.int32,
-                           device=pos.device)
-    reorder = None
-    if resident and sim.sort_key is not None:
-        # The merge-reorder carry: the keys the current row order is sorted
-        # by and their tile census.
-        reorder = (sim.sort_key, sim.sort_hist)
-    want_eff = want_eff and fast_resolve and want_aux
-    # K3 emits the decayed flow whenever it is read: by the caller
-    # (`want_eff`) or by K4 here.
-    k3_eff = fast_resolve and (want_eff or want_force)
-    new_flow, view0, aux, ride_s, *rest = fused_draw(
-        sim.flow, view0, p0, p1, vel, pos, mapped,
-        alive.to(torch.float32), params, time, grid_hw=(h, w),
-        samples=cfg.view_samples, idx=idx, ride=ride,
-        idx_bound=cfg.n if resident else None, derive_p0=resident,
-        view_size=view_size if resident else None,
-        mapped_scalar=mapped_scalar,
-        resolve="kernel" if fast_resolve else "xla", read_time=read_time,
-        want_eff=k3_eff, flow_off=flow_off, reorder=reorder,
-        host_widths=host_widths, psum=axis_name, adds_rows=cfg.n)
-    carry = rest.pop() if reorder is not None else None
-    eff = rest[0] if rest else None
-    view = torch.cat([view0[None], sim.view[1:]])
-    if not resident:
-        new_sim = dataclasses.replace(sim, flow=new_flow, view=view)
-        if not want_aux:
-            return new_sim
-        return (new_sim, aux, eff) if want_eff else (new_sim, aux)
-    sl = torch.clamp(params["speedLimit"], min=1e-12)
-    # ride_s = [x, y, (tx, ty,) vl]: the sorted velocity words last.
-    targ = ride_s[2:4] if targets_live else ()
-    force = None
-    if want_force:
-        if read_time is None:
-            raise ValueError("want_force needs read_time")
-        if eff is None:
-            eff = _decayed(new_flow, read_time, params)
-        force, *rec = gather_reconstruct_p1(
-            eff.contiguous(), aux[1], ride_s[0], ride_s[1], ride_s[-1], sl,
-            *targ, inv_p=1.0 / pos_scale_for((h, w)))
-    else:
-        rec = reconstruct_resident(ride_s[0], ride_s[1], ride_s[-1], sl,
-                                   *targ)
-    new_sim = dataclasses.replace(
-        sim, particles=rec[0], previous=rec[1],
-        targets=rec[2] if targets_live else sim.targets, idx=aux[0],
-        flow=new_flow, view=view, force=force)
-    if reorder is not None:
-        if carry is None:
-            # The draw did not admit the merge: the next frame falls back.
-            carry = (torch.full_like(sim.sort_key, MAXKEY),
-                     torch.zeros_like(sim.sort_hist))
-        new_sim = dataclasses.replace(new_sim, sort_key=carry[0],
-                                      sort_hist=carry[1])
-    if want_eff and not want_force:
-        return new_sim, aux, eff
-    return new_sim, aux
+    with span("draw"):
+        if not fused_draw_ok(cfg):
+            if want_aux or want_force:
+                raise ValueError("want_aux and want_force need the fused draw "
+                                 "(carry_enabled)")
+            return _draw_generic(sim, params, time, cfg, view_size,
+                                 psum=axis_name)
+        resident = resident and want_aux
+        if want_force and not resident:
+            raise ValueError("want_force requires the resident draw "
+                             "(resident=True with want_aux)")
+        pos = sim.particles[:2]
+        vel = sim.particles[2:]
+        prev_pos = sim.previous[:2]
+        alive = ((pos[0] != INERT) | (pos[1] != INERT)) & \
+                ((prev_pos[0] != INERT) | (prev_pos[1] != INERT))
+        h, w = cfg.view_res
+        mapped = mapped_scalar = None
+        if resident and cfg.color_map_res == (1, 1):
+            # The whole render colour model runs in the splat.
+            mapped_scalar = sim.color_map[:, 0, 0] * params["colorMapAlpha"]
+        else:
+            colormap_uv = state_mod.particle_coords_from_idx(
+                sim.idx, cfg.root_num)[2]
+            mapped = sample.sample_uv(sim.color_map, colormap_uv.T) \
+                * params["colorMapAlpha"]
+        p1 = coords.clip_to_pixel(
+            torch.stack([pos[0] * view_size[0], pos[1] * view_size[1]],
+                        dim=-1), (w, h))
+        p0 = None
+        if not resident:
+            p0 = coords.clip_to_pixel(
+                torch.stack([prev_pos[0] * view_size[0],
+                             prev_pos[1] * view_size[1]], dim=-1), (w, h))
+        view0 = sim.view[0]
+        if not fast_resolve:
+            # K3 clears and fades in-kernel; the XLA tail's caller does it.
+            view0 = render.fade_fill(view0 * (1.0 - params["autoClearView"]),
+                                     params["fadeColor"] * params["autoFade"])
+        idx = ride = None
+        targets_live = resident and targets_live
+        if resident:
+            # The exact positions ride the sort; live targets ride beside them,
+            # inert ones do not (the buffer passes through untouched).
+            idx, ride = sim.idx, [sim.particles[0], sim.particles[1]]
+            if targets_live:
+                ride += [sim.targets[0], sim.targets[1]]
+        elif want_aux:
+            # The aux id is the ROW number: the force un-sorts to row order.
+            idx = torch.arange(pos.shape[1], dtype=torch.int32,
+                               device=pos.device)
+        reorder = None
+        if resident and sim.sort_key is not None:
+            # The merge-reorder carry: the keys the current row order is sorted
+            # by and their tile census.
+            reorder = (sim.sort_key, sim.sort_hist)
+        want_eff = want_eff and fast_resolve and want_aux
+        # K3 emits the decayed flow whenever it is read: by the caller
+        # (`want_eff`) or by K4 here.
+        k3_eff = fast_resolve and (want_eff or want_force)
+        new_flow, view0, aux, ride_s, *rest = fused_draw(
+            sim.flow, view0, p0, p1, vel, pos, mapped,
+            alive.to(torch.float32), params, time, grid_hw=(h, w),
+            samples=cfg.view_samples, idx=idx, ride=ride,
+            idx_bound=cfg.n if resident else None, derive_p0=resident,
+            view_size=view_size if resident else None,
+            mapped_scalar=mapped_scalar,
+            resolve="kernel" if fast_resolve else "xla", read_time=read_time,
+            want_eff=k3_eff, flow_off=flow_off, reorder=reorder,
+            host_widths=host_widths, psum=axis_name, adds_rows=cfg.n)
+        carry = rest.pop() if reorder is not None else None
+        eff = rest[0] if rest else None
+        view = torch.cat([view0[None], sim.view[1:]])
+        if not resident:
+            new_sim = dataclasses.replace(sim, flow=new_flow, view=view)
+            if not want_aux:
+                return new_sim
+            return (new_sim, aux, eff) if want_eff else (new_sim, aux)
+        sl = torch.clamp(params["speedLimit"], min=1e-12)
+        # ride_s = [x, y, (tx, ty,) vl]: the sorted velocity words last.
+        targ = ride_s[2:4] if targets_live else ()
+        force = None
+        if want_force:
+            if read_time is None:
+                raise ValueError("want_force needs read_time")
+            if eff is None:
+                eff = _decayed(new_flow, read_time, params)
+            force, *rec = gather_reconstruct_p1(
+                eff.contiguous(), aux[1], ride_s[0], ride_s[1], ride_s[-1], sl,
+                *targ, inv_p=1.0 / pos_scale_for((h, w)))
+        else:
+            rec = reconstruct_resident(ride_s[0], ride_s[1], ride_s[-1], sl,
+                                       *targ)
+        new_sim = dataclasses.replace(
+            sim, particles=rec[0], previous=rec[1],
+            targets=rec[2] if targets_live else sim.targets, idx=aux[0],
+            flow=new_flow, view=view, force=force)
+        if reorder is not None:
+            if carry is None:
+                # The draw did not admit the merge: the next frame falls back.
+                carry = (torch.full_like(sim.sort_key, MAXKEY),
+                         torch.zeros_like(sim.sort_hist))
+            new_sim = dataclasses.replace(new_sim, sort_key=carry[0],
+                                          sort_hist=carry[1])
+        if want_eff and not want_force:
+            return new_sim, aux, eff
+        return new_sim, aux
 
 
 def _draw_generic(sim, params, time, cfg, view_size, psum=None):
@@ -690,11 +694,13 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
             sim.flow, aux, params, time + dt, cfg, unsort=not resident,
             eff=eff))
     screen = None
-    if blur is not None:
-        screen = post_ops.vignette_blur(sim.view[0], *blur)
-    if bokeh is not None:
-        screen = post_ops.bokeh(sim.view[0] if screen is None else screen,
-                                *bokeh)
+    if blur is not None or bokeh is not None:
+        with span("post"):
+            if blur is not None:
+                screen = post_ops.vignette_blur(sim.view[0], *blur)
+            if bokeh is not None:
+                screen = post_ops.bokeh(
+                    sim.view[0] if screen is None else screen, *bokeh)
     return sim, screen
 
 
@@ -854,50 +860,54 @@ class Tendrils:
     def params(self):
         """Device-tensor view of `state`, converted per key only when the
         host value changed (each conversion is a host-to-device copy)."""
-        cache = self._pcache
-        out = {}
-        for k, v in self.state.items():
-            if k in state_mod._STATIC_KEYS:
-                continue
-            hv = torch.as_tensor(v, dtype=torch.float32)
-            hk = (tuple(hv.shape), tuple(hv.reshape(-1).tolist()))
-            ent = cache.get(k)
-            if ent is None or ent[0] != hk:
-                ent = (hk, hv.to(self.device))
-                cache[k] = ent
-            out[k] = ent[1]
-        for k, on in (("autoClearView", self.state.get("autoClearView")),
-                      ("autoFade", self.state.get("autoFade", True))):
-            val = 1.0 if on else 0.0
-            ent = cache.get(k)
-            if ent is None or ent[0] != val:
-                ent = (val, _f32(val, self.device))
-                cache[k] = ent
-            out[k] = ent[1]
-        return out
+        with span("params"):
+            cache = self._pcache
+            out = {}
+            for k, v in self.state.items():
+                if k in state_mod._STATIC_KEYS:
+                    continue
+                hv = torch.as_tensor(v, dtype=torch.float32)
+                hk = (tuple(hv.shape), tuple(hv.reshape(-1).tolist()))
+                ent = cache.get(k)
+                if ent is None or ent[0] != hk:
+                    ent = (hk, hv.to(self.device))
+                    cache[k] = ent
+                out[k] = ent[1]
+            for k, on in (("autoClearView",
+                           self.state.get("autoClearView")),
+                          ("autoFade", self.state.get("autoFade", True))):
+                val = 1.0 if on else 0.0
+                ent = cache.get(k)
+                if ent is None or ent[0] != val:
+                    ent = (val, _f32(val, self.device))
+                    cache[k] = ent
+                out[k] = ent[1]
+            return out
 
     # -- per-frame API
 
     def step(self):
         """Ref `src/index.js:248-272` (honours timer pause)."""
-        self._check_force_params()
-        if not self.timer.paused:
-            self.sim = step_sim(self.sim, self.params(),
-                                _f32(self.timer.time, self.device),
-                                _f32(self.timer.dt, self.device),
-                                self.config, self._view_size,
-                                flow_off=flow_force_unused(self.state))
+        with span("frame"):
+            self._check_force_params()
+            if not self.timer.paused:
+                self.sim = step_sim(self.sim, self.params(),
+                                    _f32(self.timer.time, self.device),
+                                    _f32(self.timer.dt, self.device),
+                                    self.config, self._view_size,
+                                    flow_off=flow_force_unused(self.state))
         return self
 
     def draw(self):
         """Ref `src/index.js:278-340`: a draw with no step before it
         (`_draw`), the next force gathered after it."""
-        self.sim = _draw(self.sim, self.params(),
-                         _f32(self.timer.time, self.device),
-                         _f32(self.timer.dt, self.device), self.config,
-                         self._view_size,
-                         flow_off=flow_force_unused(self.state),
-                         host_widths=host_widths(self.state))
+        with span("frame"):
+            self.sim = _draw(self.sim, self.params(),
+                             _f32(self.timer.time, self.device),
+                             _f32(self.timer.dt, self.device), self.config,
+                             self._view_size,
+                             flow_off=flow_force_unused(self.state),
+                             host_widths=host_widths(self.state))
         return self
 
     def step_draw(self):
@@ -906,14 +916,16 @@ class Tendrils:
         self._check_force_params()
         if self.timer.paused:
             return self.draw()
-        self.sim = _frame(self.sim, self.params(),
-                          _f32(self.timer.time, self.device),
-                          _f32(self.timer.dt, self.device), self.config,
-                          self._view_size, targets_live=self._targets_live,
-                          fast_resolve=fast_resolve_ok(self.config,
-                                                       self.state),
-                          flow_off=flow_force_unused(self.state),
-                          host_widths=host_widths(self.state))
+        with span("frame"):
+            self.sim = _frame(self.sim, self.params(),
+                              _f32(self.timer.time, self.device),
+                              _f32(self.timer.dt, self.device), self.config,
+                              self._view_size,
+                              targets_live=self._targets_live,
+                              fast_resolve=fast_resolve_ok(self.config,
+                                                           self.state),
+                              flow_off=flow_force_unused(self.state),
+                              host_widths=host_widths(self.state))
         return self
 
     def frame(self):
@@ -1005,42 +1017,46 @@ class Tendrils:
         the blur when both are set. While the timer is paused only the
         step is skipped. Returns the post-processed screen `f32[4, H, W]`,
         or None without a post stage."""
-        self._check_force_params()
-        cm = None
-        if color_maps is not None:
-            cm = tuple(torch.as_tensor(g, dtype=torch.float32,
-                                       device=self.device)
-                       for g in color_maps)
-            target = max((g.shape for g in cm), key=lambda sh: sh[1] * sh[2])
-            if tuple(target) != tuple(self.sim.color_map.shape):
-                self.config = dataclasses.replace(
-                    self.config, color_map_res=tuple(target[1:]))
-            color_alphas = torch.as_tensor(color_alphas,
-                                           dtype=torch.float32,
+        with span("frame"):
+            self._check_force_params()
+            cm = None
+            if color_maps is not None:
+                cm = tuple(torch.as_tensor(g, dtype=torch.float32,
                                            device=self.device)
-        seg = None
-        if segments is not None and len(segments[0]):
-            seg = (*self._segment_tensors(*segments[:3]),
-                   _f32(max(segments[3], 1.0), self.device))
-        of = None
-        if of_frames is not None:
-            u = dict({"offset": 1.0, "lambda": 0.001, "speed": 1.0},
-                     **(of_uniforms or {}))
-            # u8 camera frames stay u8 across any upload here.
-            of = (torch.as_tensor(of_frames[0], device=self.device),
-                  torch.as_tensor(of_frames[1], device=self.device),
-                  float(u["offset"]), float(u["lambda"]), float(u["speed"]))
-        blur_t = None if blur is None else tuple(float(v) for v in blur)
-        bokeh_t = None if bokeh is None else tuple(float(v) for v in bokeh)
-        self.sim, screen = _frame_io(
-            self.sim, self.params(), _f32(self.timer.time, self.device),
-            _f32(self.timer.dt, self.device), self.config, self._view_size,
-            cm, color_alphas, seg, of, blur_t, bokeh_t,
-            stepping=not self.timer.paused,
-            targets_live=self._targets_live,
-            fast_resolve=fast_resolve_ok(self.config, self.state),
-            flow_off=flow_force_unused(self.state),
-            host_widths=host_widths(self.state))
+                           for g in color_maps)
+                target = max((g.shape for g in cm),
+                             key=lambda sh: sh[1] * sh[2])
+                if tuple(target) != tuple(self.sim.color_map.shape):
+                    self.config = dataclasses.replace(
+                        self.config, color_map_res=tuple(target[1:]))
+                color_alphas = torch.as_tensor(color_alphas,
+                                               dtype=torch.float32,
+                                               device=self.device)
+            seg = None
+            if segments is not None and len(segments[0]):
+                seg = (*self._segment_tensors(*segments[:3]),
+                       _f32(max(segments[3], 1.0), self.device))
+            of = None
+            if of_frames is not None:
+                u = dict({"offset": 1.0, "lambda": 0.001, "speed": 1.0},
+                         **(of_uniforms or {}))
+                # u8 camera frames stay u8 across any upload here.
+                of = (torch.as_tensor(of_frames[0], device=self.device),
+                      torch.as_tensor(of_frames[1], device=self.device),
+                      float(u["offset"]), float(u["lambda"]),
+                      float(u["speed"]))
+            blur_t = None if blur is None else tuple(float(v) for v in blur)
+            bokeh_t = (None if bokeh is None
+                       else tuple(float(v) for v in bokeh))
+            self.sim, screen = _frame_io(
+                self.sim, self.params(), _f32(self.timer.time, self.device),
+                _f32(self.timer.dt, self.device), self.config,
+                self._view_size, cm, color_alphas, seg, of, blur_t, bokeh_t,
+                stepping=not self.timer.paused,
+                targets_live=self._targets_live,
+                fast_resolve=fast_resolve_ok(self.config, self.state),
+                flow_off=flow_force_unused(self.state),
+                host_widths=host_widths(self.state))
         return screen
 
     def composite_flow(self, payload_grid):

@@ -74,6 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from ..const import INERT
+from ..utils.profiling import span
 from . import cuda_lib, fixed_point, reorder_cuda
 from .splat import composite_over
 from .tile_geom import HALF, PAD_LO_H, PAD_LO_W, TILE_H, TILE_W, pad_dims
@@ -737,9 +738,10 @@ def _hide_id_bits(ride, idx):
 
 
 def _read_ok(ok):
-    """The merge's `ok` on the host: the merge frame's one synchronisation
-    (a function of its own so that `frame_profile.py` can time it)."""
-    return bool(ok)
+    """The merge's `ok` on the host: the merge frame's one synchronisation,
+    the host's wait in span `draw.wait`."""
+    with span("draw.wait"):
+        return bool(ok)
 
 
 def _merge_or_sort(keym, reorder, n_tiles, idx_bits):
@@ -791,28 +793,29 @@ def _bin_and_splat(scal, words, ride, *, idx, gather, samples, grid_hw,
     h, w = grid_hw
     keym, p1, vl, p0, rgba = words
     carry = None
-    if reorder is None:
-        keym_s, perm = torch.sort(keym)
-    else:
-        keym_s, perm, carry = _merge_or_sort(
-            keym, reorder, seg_tile_count(grid_hw), _idx_bits(gather))
-    vl_s = vl[perm]
-    p0_s = None if p0 is None else p0[perm]
-    rgba_s = None if rgba is None else rgba[perm]
-    ride_s = None
-    if ride is None:
-        p1_s = p1[perm]
-    else:
-        x_s, y_s = ride[0][perm], ride[1][perm]
-        if gather == 3:
-            xi, yi = x_s.view(_I32), y_s.view(_I32)
-            id_hi = ((xi & 3) << PACK_IDX_BITS) \
-                | ((yi & 7) << (PACK_IDX_BITS + 2))
-            x_s, y_s = (xi & ~3).view(_F32), (yi & ~7).view(_F32)
-        x1q, y1q = _qpos((x_s * scal[30] * 0.5 + 0.5) * w,
-                         (y_s * scal[31] * 0.5 + 0.5) * h, grid_hw, pscale)
-        p1_s = y1q * (HALF + 1) + x1q
-        ride_s = [x_s, y_s, *(r[perm] for r in ride[2:]), vl_s]
+    with span("draw.sort"):
+        if reorder is None:
+            keym_s, perm = torch.sort(keym)
+        else:
+            keym_s, perm, carry = _merge_or_sort(
+                keym, reorder, seg_tile_count(grid_hw), _idx_bits(gather))
+        vl_s = vl[perm]
+        p0_s = None if p0 is None else p0[perm]
+        rgba_s = None if rgba is None else rgba[perm]
+        ride_s = None
+        if ride is None:
+            p1_s = p1[perm]
+        else:
+            x_s, y_s = ride[0][perm], ride[1][perm]
+            if gather == 3:
+                xi, yi = x_s.view(_I32), y_s.view(_I32)
+                id_hi = ((xi & 3) << PACK_IDX_BITS) \
+                    | ((yi & 7) << (PACK_IDX_BITS + 2))
+                x_s, y_s = (xi & ~3).view(_F32), (yi & ~7).view(_F32)
+            x1q, y1q = _qpos((x_s * scal[30] * 0.5 + 0.5) * w,
+                             (y_s * scal[31] * 0.5 + 0.5) * h, grid_hw, pscale)
+            p1_s = y1q * (HALF + 1) + x1q
+            ride_s = [x_s, y_s, *(r[perm] for r in ride[2:]), vl_s]
     accum = splat(scal, keym_s, p1_s, vl_s, idx_bits=_idx_bits(gather),
                   samples=samples, grid_hw=grid_hw, pscale=pscale, p0=p0_s,
                   rgba=rgba_s, flow_off=flow_off, adds_rows=adds_rows,
