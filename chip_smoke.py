@@ -173,6 +173,14 @@ Phase 3 also holds K4 with targets at config 2 and K6 with targets at
 config 4 against their plain versions (`torch.equal` on the targets, a
 copy; K4's force within rtol 1e-5) and against K4 and K6 without them,
 and K4 with targets == K8 + K6 with targets bit for bit.
+Phase 3 also holds K13, the logic step, equal bit for bit to its plain
+version at 1,048,576 and 16,777,216 particles and at a root of 1,000 (so
+that 1 / root is inexact), after the ball spawn and after 3 frames, with
+each force source (the carried force, K5's gather, none under flow_off),
+printing the words that differ and the largest gap in ulps where any
+does; at 16,777,216 it is timed warm, cold and in a frame beside its bound
+at 52 B a particle, and the issue time of its SASS (cuobjdump's count
+of its instructions, its registers and stack) is printed beside that.
 Phase 6 also runs the demo's vignette blur (`feeds.DEMO_BLUR`) on 3
 config-4 io frames, their screens checked and timed. Phase 3 also holds
 K2's view-only launch (flow_off) in every variant on config 1's and
@@ -302,6 +310,9 @@ KERNELS = {
     # 2,097,152 samples a pass at config 2.
     "splat_points_generic": ("tendrils_tpu_torch/csrc/splat_points.cu",
                              "tendrils_tpu/ops/splat_pallas.py:125"),
+    # The logic step, which no TPU kernel holds (XLA fuses it).
+    "logic_step": ("tendrils_tpu_torch/csrc/logic.cu",
+                   "tendrils_tpu/ops/logic.py:46"),
 }
 CONFIG2_PATH = ("pack", "splat", "resolve", "gather_reconstruct",
                 "bilinear_gather")
@@ -311,32 +322,33 @@ CONFIG4_PATH = ("pack", "splat", "resolve", "bilinear_gather",
 # four kernels a call (the plan, the tile pass, the strays, the
 # conversion), K5 two on the 2-channel flow (the interleaved copy, the
 # gather), K9 three (the channel bounds, the adds and marks, the
-# conversion).
+# conversion); a frame that steps launches K13 once, a paused one never.
 K2 = 4
 K5 = 2
 K9 = 3
 PATH_A = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "resolve": 1,
-          "gather_keyed_q15": 1}
+          "gather_keyed_q15": 1, "logic_step": 1}
 PATH_C_RUNNING = {"pack_rgba": 1, "splat_rgba": K2, "resolve": 1,
                   "reconstruct_resident": 1, "gather_keyed_p1": 1,
-                  "splat_points": K9}
+                  "splat_points": K9, "logic_step": 1}
 PATH_C_PAUSED = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "splat_points": K9}
 PATH_B = {"pack_p0_rgba": 1, "splat_p0_rgba": K2, "gather_keyed_q15": 1}
 # The resident frame with the merge on (K1 "pack" is "pack_g3" in gather
 # mode 3), with it off at configs 3 and 5, and the gather-mode-2 frames.
 MERGE_C2 = {"pack": 1, "splat": K2, "resolve": 1, "gather_reconstruct": 1,
-            "reorder_compact": 1, "reorder_apply": 1}
-CONFIG3_OFF = {"pack": 1, "splat": K2, "resolve": 1, "gather_reconstruct": 1}
+            "reorder_compact": 1, "reorder_apply": 1, "logic_step": 1}
+CONFIG3_OFF = {"pack": 1, "splat": K2, "resolve": 1, "gather_reconstruct": 1,
+               "logic_step": 1}
 CLASSIC_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": K2, "resolve": 1,
-              "gather_keyed_q15": 1}
+              "gather_keyed_q15": 1, "logic_step": 1}
 PAUSED_G2 = {"pack_p0_rgba_g2": 1, "splat_p0_rgba": K2,
              "gather_keyed_q15": 1}
 # Config 1 (flowWeight 0): the resident frame on K2 and K3 view-only and K6,
 # the classic frame on the p0 + rgba8 view-only K2; no gather.
 CONFIG1_RESIDENT = {"pack": 1, "splat_view": K2, "resolve_view": 1,
-                    "reconstruct_resident": 1}
+                    "reconstruct_resident": 1, "logic_step": 1}
 CONFIG1_CLASSIC = {"pack_p0_rgba": 1, "splat_p0_rgba_view": K2,
-                   "resolve_view": 1}
+                   "resolve_view": 1, "logic_step": 1}
 SHOW_BOKEH = (3.0, 40.0)  # config 5's show frame (`bench.py:352-378`)
 # Bokeh in f32 against float64 at 2160x3840, the most |d| either stack form
 # may read: both read ~3e-7 on an H100; TF32 or bf16 (~1e-3 relative on
@@ -1624,14 +1636,15 @@ def run_config4():
 
 def check_launches(label, frames, per_frame, launches, plain):
     """Every kernel of `per_frame` launched `frames` x its count, no other
-    kernel of the draw's tail, and no plain version."""
+    kernel of the draw's tail or the step, and no plain version."""
     for k in ("pack", "splat", "pack_p0_rgba", "splat_p0_rgba", "pack_rgba",
               "splat_rgba", "resolve", "gather_keyed_q15",
               "gather_reconstruct", "reconstruct_resident", "gather_keyed_p1",
               "splat_points", "pack_g3", "pack_p0_rgba_g2", "reorder_compact",
               "reorder_apply", "splat_view", "splat_rgba_view",
               "splat_p0_rgba_view", "resolve_view",
-              "gather_reconstruct_targets", "reconstruct_resident_targets"):
+              "gather_reconstruct_targets", "reconstruct_resident_targets",
+              "logic_step"):
         if launches.get(k, 0) != frames * per_frame.get(k, 0):
             fail(f"{label}: {k} launched {launches.get(k, 0)} times, want "
                  f"{frames * per_frame.get(k, 0)} (launches {launches})")
@@ -2141,6 +2154,192 @@ def check_view_only_kernels():
                   lambda: draw_cuda.resolve_view(rscal, acc, view),
                   lambda: draw_cuda.resolve_view_plain(rscal, acc, view),
                   56 * h * w, 20 * h * w, label=f" ({label})")
+    return out
+
+
+# K13, the logic step: bytes a particle (the particles f32[4], the targets'
+# xy f32[2], the flow force f32[2] and the ids i32 read once, the particles
+# f32[4] written once; `frame_profile.py` reads it too), the frames stepped
+# and drawn before its second check, and the H100 SXM's warp instructions an
+# SM can issue a clock (4 schedulers).
+LOGIC_BYTES = 52
+LOGIC_FRAMES = 3
+ISSUE_PER_SM_CLOCK = 4
+# A particle grid whose side is no power of two, so that 1 / root_num is
+# not exact (1,000,000 particles at config 2's view).
+LOGIC_ODD_ROOT = 1000
+
+
+def ulp_gap(got, want):
+    """The largest gap between two f32 tensors in units in the last place
+    (0: equal bit for bit)."""
+    def ordered(t):
+        i = t.view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(got) - ordered(want)).abs().max().item())
+
+
+def logic_cases(eng):
+    """K13's arguments on the engine's state for each force source it
+    takes: the carried force (where the state carries one), K5's gather
+    from the flow (`engine._step_force`), and none with flowWeight 0
+    (`flow_off`)."""
+    from tendrils_tpu_torch import engine as engine_mod
+    sim, params = eng.sim, eng.params()
+    time_ = engine_mod._f32(eng.timer.time, "cuda")
+    dt = engine_mod._f32(DT, "cuda")
+    forces = {} if sim.force is None else {"carried": (sim.force, params)}
+    forces["gathered"] = (engine_mod._step_force(
+        sim, params, time_, eng.config, eng._view_size), params)
+    forces["flow_off"] = (None, dict(params, flowWeight=torch.zeros(
+        (), device="cuda")))
+    return {k: (sim.particles, sim.targets, sim.idx, f, p, time_, dt,
+                eng.config.root_num) for k, (f, p) in forces.items()}
+
+
+def check_logic_state(label, eng):
+    """K13 equal to its plain version on the card bit for bit, on the
+    engine's state, for each force source; returns the sources."""
+    from tendrils_tpu_torch.ops import logic_cuda
+    cases = logic_cases(eng)
+    for source, args in cases.items():
+        got = logic_cuda.logic_step(*args)
+        want = logic_cuda.logic_step_plain(*args)
+        gap = ulp_gap(got, want)
+        if gap:
+            words = (got.view(torch.int32) != want.view(torch.int32)).sum()
+            fail(f"logic_step ({label}, {source}): {words.item()} words "
+                 f"differ from its plain version, by up to {gap} ulps")
+    return list(cases)
+
+
+def sass_stats(kernel):
+    """`(instructions, {opcode: count}, resources)` of `kernel` in the built
+    library, read with cuobjdump beside nvcc: its SASS instructions (NOPs
+    aside; a loop's body once) and its registers, stack and local memory;
+    None where cuobjdump fails."""
+    import pathlib
+    import re
+    from tendrils_tpu_torch.ops import cuda_lib
+    tool = str(pathlib.Path(cuda_lib._nvcc()).with_name("cuobjdump"))
+    so = cuda_lib.library()._name
+    try:
+        sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                              text=True, check=True).stdout
+        res = subprocess.run([tool, "-res-usage", so], capture_output=True,
+                             text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    ops = collections.Counter()
+    for block in sass.split("Function : ")[1:]:
+        if kernel in block.splitlines()[0]:
+            for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                                 r"([A-Z][A-Z0-9]*)", block):
+                if m.group(1) != "NOP":
+                    ops[m.group(1)] += 1
+    lines = res.splitlines()
+    used = next((lines[i + 1].strip() for i, line in enumerate(lines[:-1])
+                 if kernel in line), "not found")
+    return sum(ops.values()), ops, used
+
+
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi), in Hz; None if unread."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True).stdout.split()
+        return float(out[0]) * 1e6
+    except (OSError, subprocess.CalledProcessError, ValueError, IndexError):
+        return None
+
+
+def kernel_ms_in(fn, kernel, reps=5):
+    """Device ms a launch of the kernels named `kernel` among all that
+    `reps` calls of `fn` (a frame) launch, by `torch.profiler`; None if the
+    trace holds none. A frame's trace holds events no runtime call of its
+    own asked for (`time_calls` refuses it), so only `kernel`'s are read."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in ev.key]
+    count = sum(ev.count for ev in hits)
+    return sum(ev.self_device_time_total for ev in hits) / 1e3 / count \
+        if count else None
+
+
+def check_logic_kernel():
+    """Phase 3's K13 rows: the logic step equal to its plain version bit
+    for bit at config-2 and config-5 shapes (1,048,576 and 16,777,216
+    particles) right after the ball spawn (K5's gather, flow_off) and
+    after LOGIC_FRAMES frames (the carried force too), and at a root of
+    LOGIC_ODD_ROOT; at config 5 timed warm, cold after a write and after
+    a read, and in a frame, beside its bound at LOGIC_BYTES a particle and
+    the issue time of its SASS. Returns its row."""
+    import tendrils_tpu_torch as tt
+    from tendrils_tpu_torch import models
+    from tendrils_tpu_torch.models.configs import _spawned
+    from tendrils_tpu_torch.ops import logic_cuda
+    out = {}
+    odd = lambda: _spawned(tt.EngineConfig(  # noqa: E731
+        root_num=LOGIC_ODD_ROOT, view_res=(1080, 1920), flow_samples=2,
+        flow_rows=1, view_samples=2))
+    for label, build in (("config 2", lambda: models.build("1m-flow")),
+                         (f"root {LOGIC_ODD_ROOT}", odd),
+                         ("config 5", lambda: models.build("16m-live-show"))):
+        eng = build()
+        spawned = check_logic_state(f"{label}, spawned", eng)
+        for _ in range(LOGIC_FRAMES):
+            eng.frame()
+        stepped = check_logic_state(f"{label}, {LOGIC_FRAMES} frames", eng)
+        n = eng.config.n
+        print(f"  logic_step ({label}, {n} particles): equal to its plain "
+              f"version bit for bit, spawned ({', '.join(spawned)}) and "
+              f"after {LOGIC_FRAMES} frames ({', '.join(stepped)})")
+        if label != "config 5":
+            del eng
+            torch.cuda.empty_cache()
+    args = logic_cases(eng)["carried"]
+    timed_row(out, "logic_step", 0.0, lambda: logic_cuda.logic_step(*args),
+              lambda: logic_cuda.logic_step_plain(*args), LOGIC_BYTES * n, 0,
+              label=" (config 5, the carried force)")
+    row = out["logic_step"]
+    in_frame = kernel_ms_in(eng.frame, "logic_step_kernel")
+    row["frame_ms"] = in_frame
+    b = row["bound_ms"]
+    shares = " / ".join(
+        "not measured" if ms is None else f"{100 * b / ms:.1f} %"
+        for ms in (row["ms"], row["cold_ms"], row["cold_clean_ms"],
+                   in_frame))
+    print(f"  logic_step in a config-5 frame: "
+          + ("not measured" if in_frame is None else f"{in_frame:.4f} ms")
+          + f"; its bound at {LOGIC_BYTES} B a particle {b:.4f} ms; share of "
+          f"the bound warm / after a write / after a read / in a frame: "
+          f"{shares}")
+    stats, clock = sass_stats("logic_step_kernel"), sm_clock_hz()
+    if stats is None or clock is None:
+        print("  logic_step SASS or SM clock not read: issue time not "
+              "estimated")
+    else:
+        count, ops, used = stats
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        issue_ms = count * -(-n // 32) / (sms * ISSUE_PER_SM_CLOCK * clock) \
+            * 1e3
+        print(f"  logic_step SASS: {count} instructions a thread ("
+              + ", ".join(f"{k} {v}" for k, v in ops.most_common(12))
+              + f"); {used}; issue time at {n} particles on {sms} SMs at "
+              f"{clock / 1e9:.3f} GHz: {issue_ms:.4f} ms, beside the bytes' "
+              f"{b:.4f} ms")
+    del eng
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3317,11 +3516,13 @@ GENERIC = dict(root_num=1024, view_res=(1080, 1920), flow_samples=2,
 # Launches a frame: the generic frame on the "kernel" backends (K5 once a
 # step, K9 for each pass), the io frame (K9 for the pointers too), and
 # the fused frame with two flow levels (K5 on each, no carried force: the
-# exact p0 and rgba8 streams, K3).
-GENERIC_FRAME = {"bilinear_gather": K5, "splat_points": 2 * K9}
-GENERIC_IO = {"bilinear_gather": K5, "splat_points": 3 * K9}
+# exact p0 and rgba8 streams, K3); K13 once a step on every backend
+# ("xla" included: the step has no other form on the card).
+XLA_FRAME = {"logic_step": 1}
+GENERIC_FRAME = {"bilinear_gather": K5, "splat_points": 2 * K9, **XLA_FRAME}
+GENERIC_IO = {"bilinear_gather": K5, "splat_points": 3 * K9, **XLA_FRAME}
 LEVELS2_FRAME = {"bilinear_gather": 2 * K5, "pack_p0_rgba": 1,
-                 "splat_p0_rgba": K2, "resolve": 1}
+                 "splat_p0_rgba": K2, "resolve": 1, **XLA_FRAME}
 VARIANT_FRAMES = 20  # frames of a timed run in phase 16 (d) and (e)
 # The generic draw's grids on K9 against the f32 scatter: the tolerance the
 # JAX package holds its Pallas splat to (tests/test_splat_pallas.py:29-34).
@@ -3583,7 +3784,8 @@ def run_generic_variants(card, total):
         eng = generic_engine(backend, **JAX_DEFAULT)
         launches, sec, runs = warm_and_time(
             eng, f"(d) JAX default on {backend}",
-            GENERIC_FRAME if backend == "kernel" else {}, VARIANT_FRAMES)
+            GENERIC_FRAME if backend == "kernel" else XLA_FRAME,
+            VARIANT_FRAMES)
         add_counts(total, launches)
         rows.append(f"{backend} {sec * 1e3:.3f} ms/frame ("
                     + ", ".join(f"{r:.3f}" for r in runs) + ")")
@@ -3592,8 +3794,8 @@ def run_generic_variants(card, total):
           f"{JAX_DEFAULT['view_res'][1]}, flow 4 x 3 samples, view 4 x 1) "
           f"on the generic draw, 2 warm frames and median of 3 x "
           f"{VARIANT_FRAMES} headless steps: " + "; ".join(rows)
-          + f"; K5 once a step and K9 twice a frame on kernel, no launch on "
-          f"xla, no plain call ({card})")
+          + f"; K5 once a step and K9 twice a frame on kernel, K13 alone "
+          f"on xla, no plain call ({card})")
     del eng
 
     eng = generic_engine(fused_draw=True, flow_levels=2)
@@ -3636,7 +3838,8 @@ def run_generic_variants(card, total):
         times = [timed_frames(lambda: feed.frame(next(frames)), IO_FRAMES)
                  for _ in range(3)]
         launches = counts(f"(f) io frame on {backend}", scaled(
-            GENERIC_IO if backend == "kernel" else {}, 2 + 3 * IO_FRAMES))
+            GENERIC_IO if backend == "kernel" else XLA_FRAME,
+            2 + 3 * IO_FRAMES))
         add_counts(total, launches)
         alive, texels = check_state(eng.sim, f"(f) io frame on {backend}")
         rows.append(f"{backend} {statistics.median(times) * 1e3:.3f} "
@@ -3742,13 +3945,14 @@ def run_generic(card, fused_ms):
     cuda_lib.reset_counts()
 
     xla = generic_engine("xla")
-    _, sec_x, runs_x = warm_and_time(xla, "(b) generic xla draw", {},
-                                     STEPS)
+    _, sec_x, runs_x = warm_and_time(xla, "(b) generic xla draw",
+                                     XLA_FRAME, STEPS)
     del xla
     errs = agree_backends(eng)
     print(f"[16] (b) 1m-flow on the \"xla\" backends (the JAX package's "
-          f"default off a TPU): 2 frames + 3 x {STEPS} headless steps, no "
-          f"kernel launched, no plain call; {sec_x * 1e3:.3f} ms/frame, "
+          f"default off a TPU): 2 frames + 3 x {STEPS} headless steps, K13 "
+          f"the one kernel launched, no plain call; {sec_x * 1e3:.3f} "
+          f"ms/frame, "
           f"{eng.config.n / sec_x:.0f} particle-steps/s ("
           + ", ".join(f"{r:.3f}" for r in runs_x) + f" ms/frame) ({card}); "
           f"one draw from (a)'s state on the f32 scatter against K9, within "
@@ -4322,6 +4526,8 @@ def main():
     print("[3] K2 and K3 view-only (flow_off) on config-1 and config-2 "
           "streams:")
     checks.update(lap(laps, "3 view-only", check_view_only_kernels))
+    print("[3] K13, the logic step, at config-2 and config-5 shapes:")
+    checks.update(lap(laps, "3 K13", check_logic_kernel))
 
     eng, launches2, ms2 = lap(laps, "4 config 2", run_config2)
     names = lap(laps, "5 replay", replay, eng, eng.frame, "1m-flow")

@@ -166,12 +166,6 @@ def _stage_timers(acc, generic=False):
 NESTED = "  of which: "
 
 
-# The logic step's contract, bytes a particle: the particles f32[4, N],
-# the targets' xy f32[2, N], the carried force f32[2, N] and the ids
-# i32[N] read once, the particles f32[4, N] written once.
-LOGIC_BYTES = 4 * 4 + 2 * 4 + 2 * 4 + 4 + 4 * 4
-
-
 def _layer(by, name):
     """Span `name` with the spans nested in it by name, as one
     `SpanTimes`."""
@@ -200,9 +194,9 @@ def print_spans(events, n, particles):
     print("    layers, device ms a frame: " + ", ".join(
         f"{k} {t.device_us / 1e3 / n:.4f}" for k, t in layers.items()))
     logic_ms = layers["logic"].device_us / 1e3 / n
-    least = cs.bound(LOGIC_BYTES * particles, 0)[0]
+    least = cs.bound(cs.LOGIC_BYTES * particles, 0)[0]
     print(f"    logic step: {layers['logic'].launches / n:.1f} launches a "
-          f"frame; its {LOGIC_BYTES} B a particle over "
+          f"frame; its {cs.LOGIC_BYTES} B a particle over "
           f"{cs.HBM_BYTES_PER_S:.3g} B/s take {least:.4f} ms: "
           + (f"{100 * least / logic_ms:.3f} %" if logic_ms else "no time"))
     sync = sum(t.sync_us for k, t in by.items() if k) / 1e3 / n

@@ -2,8 +2,9 @@
 
 The port of `tendrils_tpu/engine.py`. Per frame:
 
-    step_sim   logic step (plain tensor code); the flow force comes carried
-               from the previous frame, or is gathered in the step: K5 on
+    step_sim   logic step (K13, one pass over the particles); the flow
+               force comes carried from the previous frame, or is
+               gathered before the step: K5 on
                the flow decayed once, one call per pyramid level, with
                `gather_backend="kernel"`; the reference's interpolate-then-
                decay order in plain tensor code with "xla";
@@ -70,7 +71,7 @@ import torch.nn.functional as F
 
 from . import state as state_mod
 from .const import INERT
-from .ops import coords, flow as flow_ops, logic
+from .ops import coords, flow as flow_ops, logic_cuda
 from .ops import optical_flow as of_ops, post as post_ops, render, sample
 from .ops import spawn as spawn_ops, splat as splat_ops
 from .ops.draw_cuda import (KMAX_WIDTH, fused_draw, gather_mode,
@@ -254,60 +255,56 @@ def initial_force(sim: state_mod.SimState, params, cfg: EngineConfig,
     return bilinear_gather(eff, u0 * w, u1 * h)
 
 
+def _step_force(sim, params, time, cfg: EngineConfig, view_size):
+    """The flow force `f32[2, N]` gathered for the step at the particles'
+    screen positions (no carried force): K5 on the flow decayed once, on
+    each level of its pyramid weighted 1/(level + 1), on the "kernel"
+    gather backend; `flow.flow_at_screen_pos` on the raw pyramid on "xla"."""
+    pos = sim.particles[:2]
+    pos_screen = torch.stack([pos[0] * view_size[0], pos[1] * view_size[1]],
+                             dim=-1)
+    if cfg.gather_backend == "xla":
+        return flow_ops.flow_at_screen_pos(
+            pos_screen, flow_pyramid(sim.flow, cfg.flow_levels), time,
+            params["flowDecay"])
+    # Decay-then-interpolate matches the reference's interpolate-then-decay
+    # but where stale and live texels mix (both ~0 there).
+    eff_pyr = flow_pyramid(_decayed(sim.flow, time, params), cfg.flow_levels)
+    u = pos_screen * 0.5 + 0.5
+    force = total = 0.0
+    for level, grid in enumerate(eff_pyr):
+        _, h, w = grid.shape
+        factor = 1.0 / (level + 1.0)
+        force = force + bilinear_gather(grid, u[:, 0] * w, u[:, 1] * h) \
+            * factor
+        total = total + factor
+    return force / total
+
+
 def step_sim(sim: state_mod.SimState, params, time, dt, cfg: EngineConfig,
              view_size, flow_off=False):
-    """Logic step + ping-pong — ref `src/index.js:248-272`.
+    """Logic step + ping-pong — ref `src/index.js:248-272`: K13
+    (`logic_cuda.logic_step`; its plain version on CPU tensors).
 
-    Uses the carried force when the previous frame left one. Otherwise, on
-    the "kernel" gather backend, decays the flow grid once and gathers its
-    2 velocity channels (K5) at the particles' screen positions, on each
-    level of its pyramid weighted 1/(level + 1); on "xla" it samples the
-    pyramid of the raw grid and decays what it read
-    (`flow.flow_at_screen_pos`, the reference's order). `flow_off`
-    (host-known `flowWeight == 0`, `flow_force_unused`): the flow term is
-    exactly zero, the parameter variance being multiplicative (ref
-    `src/logic.frag:41-43`), so nothing is decayed or gathered."""
+    Uses the carried force when the previous frame left one, else gathers
+    one (`_step_force`). `flow_off` (host-known `flowWeight == 0`,
+    `flow_force_unused`): the flow term is exactly zero, the parameter
+    variance being multiplicative (ref `src/logic.frag:41-43`), so nothing
+    is decayed or gathered."""
     with span("logic"):
         if cfg.gather_backend not in ("xla", "kernel"):
             raise ValueError(f"unknown gather backend: {cfg.gather_backend}")
-        uv, index01, _ = state_mod.particle_coords_from_idx(sim.idx,
-                                                            cfg.root_num)
-        flows = flow_force_fn = None
         if flow_off:
-
-            def flow_force_fn(pos_screen):
-                del pos_screen
-                return 0.0
+            force = None
         elif sim.force is not None:
             # Carried force: gathered at the end of the previous frame from its
             # final flow at these exact positions. Consumed once.
             force = sim.force
-
-            def flow_force_fn(pos_screen):
-                del pos_screen
-                return force
-        elif cfg.gather_backend == "kernel":
-            # Decay-then-interpolate matches the reference's interpolate-then-
-            # decay but where stale and live texels mix (both ~0 there).
-            eff_pyr = flow_pyramid(_decayed(sim.flow, time, params),
-                                   cfg.flow_levels)
-
-            def flow_force_fn(pos_screen):
-                u = pos_screen * 0.5 + 0.5
-                force = total = 0.0
-                for level, grid in enumerate(eff_pyr):
-                    _, h, w = grid.shape
-                    factor = 1.0 / (level + 1.0)
-                    force = force + bilinear_gather(
-                        grid, u[:, 0] * w, u[:, 1] * h) * factor
-                    total = total + factor
-                return force / total
         else:
-            flows = flow_pyramid(sim.flow, cfg.flow_levels)
-
-        new_particles = logic.step_particles(
-            sim.particles, flows, sim.targets, params, uv, index01, view_size,
-            time, dt, flow_force_fn=flow_force_fn)
+            force = _step_force(sim, params, time, cfg, view_size)
+        new_particles = logic_cuda.logic_step(
+            sim.particles, sim.targets, sim.idx, force, params, time, dt,
+            cfg.root_num)
         return dataclasses.replace(sim, particles=new_particles,
                                    previous=sim.particles, force=None)
 

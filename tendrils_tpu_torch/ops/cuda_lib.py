@@ -62,6 +62,7 @@ _SIGNATURES = {
     "tt_reorder_compact": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "tt_reorder_apply": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P,
                          _P, _P, _P],
+    "tt_logic_step": [_P, _P, _P, _P, _I, _I, *[_P] * 16, _P, _P],
 }
 
 launches = collections.Counter()

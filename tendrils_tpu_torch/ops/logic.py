@@ -7,7 +7,9 @@
   5. speed clamp to `speedLimit`, Euler integrate `pos += vel`
 with per-particle variance `vary(base, i, variance) = base + i*variance*base`
 and the inert-sentinel mask. Plain elementwise tensor code (the JAX package
-leaves it to XLA too: no TPU kernel sits on this step).
+leaves it to XLA too: no TPU kernel sits on this step). On the card the step
+runs as K13 (`ops/logic_cuda.py`, `csrc/logic.cu`); `step_with_force` is its
+plain version.
 """
 
 import torch
@@ -43,12 +45,6 @@ def step_particles(particles, flows, targets, params, uv, index01, view_size,
     scale; `flow_force_fn(pos_screen [N, 2]) -> f32[2, N]` overrides the
     flow-force evaluation (carried force, kernel gather)."""
     pos = particles[:2]
-    vel = particles[2:]
-
-    alive = (pos[0] != INERT) | (pos[1] != INERT)
-
-    wander = wander_force(pos, uv, index01, params, time)
-
     # Flow force from LAST frame's flow (ref `src/index.js:296-298`).
     pos_screen = torch.stack([pos[0] * view_size[0], pos[1] * view_size[1]],
                              dim=-1)
@@ -57,6 +53,20 @@ def step_particles(particles, flows, targets, params, uv, index01, view_size,
     else:
         flow_force = flow_ops.flow_at_screen_pos(
             pos_screen, flows, time, params["flowDecay"], sample_fn)
+    return step_with_force(particles, targets, params, uv, index01, time, dt,
+                           flow_force)
+
+
+def step_with_force(particles, targets, params, uv, index01, time, dt,
+                    flow_force):
+    """The step given its flow force, `f32[2, N]` or the number 0.0 (the
+    flow term then adds 0.0 in its place): K13's plain version."""
+    pos = particles[:2]
+    vel = particles[2:]
+
+    alive = (pos[0] != INERT) | (pos[1] != INERT)
+
+    wander = wander_force(pos, uv, index01, params, time)
 
     force_w = vary(params["forceWeight"], index01, params["varyForce"])
     flow_w = vary(params["flowWeight"], index01, params["varyFlow"])

@@ -34,7 +34,7 @@ from .. import state as state_mod
 from ..const import INERT
 from ..engine import (EngineConfig, _decayed, _f32, carry_enabled,
                       force_from_aux, host_widths as state_widths)
-from ..ops import coords, flow as flow_ops, logic, render, sample
+from ..ops import coords, flow as flow_ops, logic_cuda, render, sample
 from ..ops import splat as splat_ops
 from ..ops.draw_cuda import _widen_excess, fused_draw_accumulate
 from ..ops.gather_cuda import bilinear_gather
@@ -79,31 +79,25 @@ def shard_sim_spatial(sim, mesh):
 
 
 def _slab_step(sim, params, time, dt, cfg: EngineConfig, view_size, group):
-    """The slab frame's logic step: the force carried from the previous
-    frame, else gathered from the all-gathered 2-channel decayed flow, K5
-    on the "kernel" gather backend, the plain bilinear sample on "xla"
-    (decayed, then interpolated, on both)."""
+    """The slab frame's logic step (K13 on this rank's rows): the force
+    carried from the previous frame, else gathered from the all-gathered
+    2-channel decayed flow, K5 on the "kernel" gather backend, the plain
+    bilinear sample on "xla" (decayed, then interpolated, on both)."""
     h, w = cfg.view_res
-    uv, index01, _ = state_mod.particle_coords_from_idx(sim.idx,
-                                                        cfg.root_num)
     if sim.force is not None:
         force = sim.force
-
-        def flow_force_fn(pos_screen):
-            del pos_screen
-            return force
     else:
         eff = comm.all_gather_rows(_decayed(sim.flow, time, params), group)
         gather = bilinear_gather if cfg.gather_backend == "kernel" \
             else sample.bilinear_sample
-
-        def flow_force_fn(pos_screen):
-            u = pos_screen * 0.5 + 0.5
-            return gather(eff, u[:, 0] * w, u[:, 1] * h)
-
-    new_particles = logic.step_particles(
-        sim.particles, None, sim.targets, params, uv, index01, view_size,
-        time, dt, flow_force_fn=flow_force_fn)
+        pos = sim.particles[:2]
+        pos_screen = torch.stack([pos[0] * view_size[0],
+                                  pos[1] * view_size[1]], dim=-1)
+        u = pos_screen * 0.5 + 0.5
+        force = gather(eff, u[:, 0] * w, u[:, 1] * h)
+    new_particles = logic_cuda.logic_step(
+        sim.particles, sim.targets, sim.idx, force, params, time, dt,
+        cfg.root_num)
     return dataclasses.replace(sim, particles=new_particles,
                                previous=sim.particles, force=None)
 

@@ -106,8 +106,10 @@ def test_module_entry_point(tmp_path):
 
 def test_cli_runs_the_xla_backend(tmp_path, capsys, monkeypatch):
     """`--backend xla` (the JAX CLI's choice off a TPU) runs the demo on
-    the generic draw: no kernel's plain version runs, the frames and the
-    JSON line as on the kernel backend; an unknown backend is refused."""
+    the generic draw: no kernel's plain version runs but the logic
+    step's (K13's, once a frame: the step has no "xla" form), the frames
+    and the JSON line as on the kernel backend; an unknown backend is
+    refused."""
     from tendrils_tpu_torch.app import demo as demo_mod
     from tendrils_tpu_torch.ops import cuda_lib
     made = []
@@ -127,7 +129,7 @@ def test_cli_runs_the_xla_backend(tmp_path, capsys, monkeypatch):
     assert list(line) == KEYS and line["frames"] == 3
     cfg = made[0].tendrils.config
     assert (cfg.splat_backend, cfg.gather_backend) == ("xla", "xla")
-    assert not cuda_lib.plain_calls
+    assert dict(cuda_lib.plain_calls) == {"logic_step": 3}
     assert len(list(out.glob("frame_*.png"))) == 3
     assert (made[0].tendrils.sim.view[0, 3] > 0).any()
     with pytest.raises(SystemExit):

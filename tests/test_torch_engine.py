@@ -139,7 +139,8 @@ def test_unported_branches_raise():
 
 def test_generic_draw_runs():
     """`fused_draw=False` runs the generic draw (K9's plain version twice
-    a frame on CPU tensors, K5's once a step), where it once raised."""
+    a frame on CPU tensors, K5's and K13's once a step), where it once
+    raised."""
     cfg = tengine.EngineConfig(root_num=4, view_res=(16, 128),
                                fused_draw=False)
     eng = tengine.Tendrils(cfg, device="cpu").setup()
@@ -147,7 +148,8 @@ def test_generic_draw_runs():
     cuda_lib.reset_counts()
     eng.frame()
     assert dict(cuda_lib.plain_calls) == {"bilinear_gather": 1,
-                                          "splat_points": 2}
+                                          "splat_points": 2,
+                                          "logic_step": 1}
     assert (eng.sim.flow[3] > 0).any() and (eng.sim.view[0, 3] > 0).any()
 
 

@@ -1,15 +1,22 @@
 """The port's spawn and logic step against the JAX package's, on the same
-seeded inputs."""
+seeded inputs; the step's dispatch to K13 (`ops/logic_cuda.py`) and its
+plain version, and K13's C entry against its ctypes signature."""
+
+import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tendrils_tpu import engine as jengine, state as jstate
 from tendrils_tpu.ops import logic as jlogic, noise as jnoise, rand as jrand
 from tendrils_tpu.ops import spawn as jspawn
-from tendrils_tpu_torch import convert, state as tstate
+from tendrils_tpu_torch import convert, engine as tengine, state as tstate
+from tendrils_tpu_torch.ops import cuda_lib, gather_cuda, logic_cuda
 from tendrils_tpu_torch.ops import logic as tlogic, noise as tnoise
 from tendrils_tpu_torch.ops import rand as trand, spawn as tspawn
 
@@ -128,3 +135,141 @@ def test_step_particles_flow_sampling_matches():
         torch.as_tensor(vs), torch.as_tensor(time), torch.as_tensor(dt))
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL,
                                atol=ATOL)
+
+
+# --- K13: the step's dispatch, its plain version, its C entry ----------------
+
+LOGIC_CU = (pathlib.Path(tengine.__file__).parent / "csrc" / "logic.cu"
+            ).read_text()
+
+
+def _engine(**cfg_kw):
+    """A CPU facade after a ball spawn and 2 frames (a carried force)."""
+    cfg = tengine.EngineConfig(root_num=16, view_res=(32, 128),
+                               flow_samples=2, flow_rows=1, view_samples=2,
+                               **cfg_kw)
+    eng = tengine.Tendrils(cfg, device="cpu").setup()
+    eng.spawn_shader(lambda p, e: tspawn.ball(p, e._frag_xy, 0.6, 0.01))
+    eng.state["target"] = 0.01  # make the target term count
+    eng.frame()
+    eng.frame()
+    return eng
+
+
+def test_step_sim_counts_the_plain_version():
+    """On CPU tensors every step runs K13's plain version once (a frame, a
+    headless step) and launches nothing."""
+    eng = _engine()
+    cuda_lib.reset_counts()
+    eng.frame()
+    assert cuda_lib.plain_calls["logic_step"] == 1
+    tengine.run_headless(eng.sim, eng.params(), eng.config, eng._view_size,
+                         eng.timer.time, 1000.0 / 60.0, 3)
+    assert cuda_lib.plain_calls["logic_step"] == 4
+    assert not cuda_lib.launches
+
+
+def _kernel_force(sim, params, time, view_size, cfg):
+    """The in-step K5 gather as `step_particles`' `flow_force_fn` (one flow
+    level): the decayed flow sampled at the screen positions."""
+    eff = tengine._decayed(sim.flow, time, params)
+    _, h, w = eff.shape
+
+    def fn(pos_screen):
+        u = pos_screen * 0.5 + 0.5
+        force = 0.0 + gather_cuda.bilinear_gather(
+            eff, u[:, 0] * w, u[:, 1] * h) * 1.0
+        return force / (0.0 + 1.0)
+    return fn
+
+
+@pytest.mark.parametrize("source", ["carried", "kernel", "xla", "flow_off"])
+def test_step_sim_force_sources_match_step_particles(source):
+    """`step_sim` on each flow-force source (the carried force, the gather
+    on the "kernel" and "xla" backends, none under `flow_off`) gives what
+    `logic.step_particles` gives on the same inputs, bit for bit."""
+    eng = _engine(gather_backend="xla" if source == "xla" else "kernel")
+    sim, params, cfg = eng.sim, eng.params(), eng.config
+    # The carried force needs the "kernel" gather (`carry_enabled`).
+    assert (sim.force is not None) == (source != "xla")
+    if source == "kernel":
+        sim = dataclasses.replace(sim, force=None)
+    time = torch.tensor(eng.timer.time + 1000.0 / 60.0, dtype=torch.float32)
+    dt = torch.tensor(1000.0 / 60.0, dtype=torch.float32)
+    flows, fn = None, None
+    if source == "carried":
+        fn = lambda pos_screen: sim.force  # noqa: E731
+    elif source == "kernel":
+        fn = _kernel_force(sim, params, time, eng._view_size, cfg)
+    elif source == "xla":
+        flows = [sim.flow]
+    else:
+        fn = lambda pos_screen: 0.0  # noqa: E731
+    uv, i01, _ = tstate.particle_coords_from_idx(sim.idx, cfg.root_num)
+    want = tlogic.step_particles(sim.particles, flows, sim.targets, params,
+                                 uv, i01, eng._view_size, time, dt,
+                                 flow_force_fn=fn)
+    cuda_lib.reset_counts()
+    got = tengine.step_sim(sim, params, time, dt, cfg, eng._view_size,
+                           flow_off=source == "flow_off")
+    assert dict(cuda_lib.plain_calls) == {
+        "logic_step": 1, **({"bilinear_gather": 1} if source == "kernel"
+                            else {})}
+    assert torch.equal(got.particles, want)
+    assert got.previous is sim.particles and got.force is None
+
+
+def _c_params(entry):
+    """The parameter list of C entry `entry` in csrc/logic.cu."""
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", LOGIC_CU)
+    assert m, entry
+    return [p.strip() for p in m.group(1).split(",")]
+
+
+def test_signature_matches_the_c_entry():
+    """`_SIGNATURES["tt_logic_step"]` has an argument for each parameter of
+    the C entry, pointers where it takes pointers, ints where ints."""
+    params = _c_params("tt_logic_step")
+    sig = cuda_lib._SIGNATURES["tt_logic_step"]
+    assert len(sig) == len(params) == 24
+    for arg, decl in zip(sig, params):
+        assert (arg is cuda_lib._P) == ("*" in decl), decl
+        assert (arg is cuda_lib._I) == decl.startswith("int "), decl
+
+
+def test_param_order_matches_the_kernel():
+    """`logic_cuda.PARAM_KEYS`, then time and dt, are the order of the
+    kernel's `Param` enum and of the C entry's parameter pointers."""
+    enum = re.search(r"enum Param \{([^}]*)\}", LOGIC_CU).group(1)
+    names = [n.strip() for n in enum.split(",")][:-1]  # N_PARAMS last
+    snake = [re.sub(r"(?<!^)(?=[A-Z])", "_", k).upper()
+             for k in logic_cuda.PARAM_KEYS] + ["TIME", "DT"]
+    assert names == snake
+    pointers = [p.split("*")[-1].strip() for p in _c_params("tt_logic_step")]
+    assert pointers[6:22] == [n.lower() for n in snake]
+
+
+def test_logic_step_plain_without_force_adds_zero():
+    """K13's plain version with no force is the step whose flow term is the
+    number 0.0 (the `flow_off` step), and each row is the same function of
+    its own index whatever the row order."""
+    rng = np.random.default_rng(3)
+    root = 16
+    n = root * root
+    particles = torch.as_tensor(np.concatenate([
+        rng.uniform(-1, 1, (2, n)), rng.uniform(-0.01, 0.01, (2, n))]
+    ).astype(np.float32))
+    targets = torch.as_tensor(rng.uniform(-1, 1, (4, n)).astype(np.float32))
+    idx = torch.as_tensor(rng.permutation(n).astype(np.int32))
+    params = tstate.params_from_state(tstate.default_state(), device="cpu")
+    time, dt = torch.tensor(500.0), torch.tensor(1000.0 / 60.0)
+    got = logic_cuda.logic_step(particles, targets, idx, None, params, time,
+                                dt, root)
+    uv, i01, _ = tstate.particle_coords_from_idx(idx, root)
+    want = tlogic.step_with_force(particles, targets, params, uv, i01, time,
+                                  dt, 0.0)
+    assert torch.equal(got, want)
+    perm = torch.as_tensor(rng.permutation(n))
+    again = logic_cuda.logic_step(particles[:, perm], targets[:, perm],
+                                  idx[perm], None, params, time, dt, root)
+    assert torch.equal(again, got[:, perm])
