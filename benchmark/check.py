@@ -9,6 +9,11 @@ of those. Particle rows are compared by identity (`idx`, the row order a
 resident frame sorts), and a row order that is no permutation, or a gap
 that is not finite, reads infinity. `start` compares digests of the
 state the program set up against the reference's.
+
+In a mix that respawns the particles, a run also follows the first
+respawn frame after the window (`spawn_numbers`): `respawn`, the state the
+respawn left against the reference's ball, and that frame's numbers again
+under `spawn_<name>`.
 """
 
 import math
@@ -119,26 +124,45 @@ def verdict(numbers, limits):
     return ok, checks
 
 
+def _follow(c, i, sim_in, out, screen, device):
+    """The gaps of frame `i`'s output `out` (and screen) from the
+    reference's, which follows the frame from `sim_in`."""
+    if not (_sound(sim_in) and _sound(out)):
+        # Rows that are no permutation of the ids, or positions that are
+        # not finite, cannot feed the reference.
+        gaps = {f: math.inf for f in ROW_FIELDS + GRID_FIELDS}
+        if screen is not None or c.traffic.get("bokeh"):
+            gaps["screen"] = math.inf
+        return gaps
+    fr = reference.Frame(c.config, c.traffic, i, device)
+    ref = fr.step(sim_in)
+    ref_draw, ref_screen = fr.draw(sim_in, out)
+    ref.update(ref_draw)
+    return compare(out, ref, screen, ref_screen)
+
+
 def numbers(c, seed, i, sim_in, sim_out, screen, start_digest, device):
     """The compared numbers of cell `c`'s run: its frame `i` from the
     state before it (`sim_in`) to the state and screen it returned, and
     the digest of the state it set up, each against the reference."""
-    start = digest_gap(
+    out = _follow(c, i, sim_in, sim_out, screen, device)
+    out["start"] = digest_gap(
         start_digest, digest(reference.start(c.config, seed, device)))
-    if not (_sound(sim_in) and _sound(sim_out)):
-        # Rows that are no permutation of the ids, or positions that are
-        # not finite, cannot feed the reference.
-        out = {f: math.inf for f in ROW_FIELDS + GRID_FIELDS}
-        if screen is not None or c.traffic.get("bokeh"):
-            out["screen"] = math.inf
-        out["start"] = start
-        return out
-    fr = reference.Frame(c.config, c.traffic, i, device)
-    ref = fr.step(sim_in)
-    ref_draw, ref_screen = fr.draw(sim_in, sim_out)
-    ref.update(ref_draw)
-    out = compare(sim_out, ref, screen, ref_screen)
-    out["start"] = start
+    return out
+
+
+def spawn_numbers(c, i, sim_in, spawned, sim_out, screen, device):
+    """The compared numbers of respawn frame `i`: `respawn`, the state the
+    respawn left (`spawned`) against the reference's from the state before
+    it (`sim_in`), by identity, particles and previous; then each of the
+    frame's own numbers as `spawn_<name>`."""
+    want = reference.Frame(c.config, c.traffic, i, device).enter(sim_in)
+    out = {"respawn": max(
+        gap(by_identity(spawned[f], spawned["idx"]),
+            by_identity(want[f], want["idx"])) if _sound(spawned)
+        else math.inf for f in ("particles", "previous"))}
+    for k, v in _follow(c, i, sim_in, sim_out, screen, device).items():
+        out[f"spawn_{k}"] = v
     return out
 
 
@@ -149,19 +173,30 @@ def _sound(sim):
     return bool(torch.isfinite(p).all())
 
 
-def control_numbers(c, seed, i, sim_in, kind, device):
-    """The numbers of the control `kind` (a `reference` lowp) put in the
-    program's place for frame `i` and the set-up."""
+def _control(c, i, sim_in, kind, device):
+    """The control `kind` (a `reference` lowp) in the program's place for
+    frame `i`: `(the state its respawn left, if any, its output, its
+    screen)`."""
     ctl = reference.Frame(c.config, c.traffic, i, device, lowp=kind)
     got = ctl.step(sim_in)
     got_draw, got_screen = ctl.draw(sim_in, got)
     got.update(got_draw)
-    fr = reference.Frame(c.config, c.traffic, i, device)
-    ref = fr.step(sim_in)
-    ref_draw, ref_screen = fr.draw(sim_in, got)
-    ref.update(ref_draw)
-    out = compare(got, ref, got_screen, ref_screen)
+    return ctl.enter(sim_in), got, got_screen
+
+
+def control_numbers(c, seed, i, sim_in, kind, device):
+    """The numbers of the control `kind` (a `reference` lowp) put in the
+    program's place for frame `i` and the set-up."""
+    _, got, got_screen = _control(c, i, sim_in, kind, device)
+    out = _follow(c, i, sim_in, got, got_screen, device)
     out["start"] = digest_gap(
         digest(reference.start(c.config, seed, device, lowp=kind)),
         digest(reference.start(c.config, seed, device)))
     return out
+
+
+def control_spawn_numbers(c, i, sim_in, kind, device):
+    """The control `kind`'s numbers for respawn frame `i`, named as
+    `spawn_numbers` names the program's."""
+    spawned, got, got_screen = _control(c, i, sim_in, kind, device)
+    return spawn_numbers(c, i, sim_in, spawned, got, got_screen, device)

@@ -7,14 +7,24 @@ one. The benchmark's own runs plant none.
   step_unchanged       the logic step returns its state unchanged;
   half_the_particles   half of the particles left out of the draw;
   answer_altered       one particle's position altered where the frame
-                       returns it.
+                       returns it;
+  respawn_skipped      a respawn after the set-up's spawn ticks the timer
+                       but leaves the state as it was (in a cell whose
+                       mix respawns: `for_cell`).
 
 A cell on one card has no exchange between chips to leave out.
 """
 
 import dataclasses
 
-NAMES = ("step_unchanged", "half_the_particles", "answer_altered")
+NAMES = ("step_unchanged", "half_the_particles", "answer_altered",
+         "respawn_skipped")
+
+
+def for_cell(c):
+    """The faults cell `c` (`cell.Cell`) can have."""
+    return tuple(n for n in NAMES
+                 if n != "respawn_skipped" or c.traffic.get("respawn"))
 
 
 def _patch(mod, name, fn):
@@ -54,4 +64,13 @@ def plant(name):
             return frame_io
         undo.append(_patch(engine, "_frame_io", io))
         return lambda: [u() for u in reversed(undo)]
+    if name == "respawn_skipped":
+        def skipped(real):
+            def spawn_shader(self, op, target=None):
+                if self.timer.time == 0:  # the set-up's spawn
+                    return real(self, op, target)
+                self.timer.tick()
+                return self
+            return spawn_shader
+        return _patch(engine.Tendrils, "spawn_shader", skipped)
     raise ValueError(f"unknown fault: {name} (one of {NAMES})")

@@ -24,6 +24,10 @@ Every metric, end-to-end or per-layer, is read by its own file,
 With `--trace 1` the loop profiles `PROFILED` frames once half the window
 has passed (a synchronize, spin kernels, the frames, a synchronize), and
 the per-layer metrics read that stretch and the window's other frames.
+
+In a mix that respawns the particles, the run goes on after the window,
+untimed and once the peak is read, up to and including the mix's next
+respawn frame, which the check follows too (`run_to_respawn`).
 """
 
 import collections
@@ -110,6 +114,8 @@ class Window:
     last_in: object = None  # the program's state before the last frame
     last_i: int = -1
     screen: object = None
+    # The intervals that span a traced stretch, one a try.
+    stretches: list = dataclasses.field(default_factory=list)
 
 
 def _span(name):
@@ -132,6 +138,7 @@ def run_window(feed, eng, first, seconds, clock, want_trace, counters):
             i += PROFILED
             w.frames += PROFILED
             marks.append(clock.mark())
+            w.stretches.append(len(marks) - 2)
             continue
         if len(marks) >= 3:
             clock.wait(marks[-2])
@@ -182,6 +189,23 @@ def _traced_stretch(feed, eng, i, clock, w, counters):
     return view
 
 
+def run_to_respawn(feed, eng, last, clock):
+    """The mix's frames from `last + 1` on, untimed, up to and including
+    its next respawn frame `i`: `(i, the state before it, the state the
+    respawn left, the state after it, its screen)`, each `{field:
+    tensor}`."""
+    i = last + 1
+    while not traffic.respawns(feed.spec, i):
+        feed.frame(i)
+        i += 1
+    before = eng.sim
+    feed.keep_spawned = True
+    screen = feed.frame(i)
+    clock.sync()
+    return (i, reference.fields(before), reference.fields(feed.spawned),
+            reference.fields(eng.sim), screen)
+
+
 def nvidia_smi():
     """The card's name, power limit and clocks as nvidia-smi reads them."""
     try:
@@ -228,7 +252,7 @@ def run(c, seed, seconds, want_trace, t0, device="cuda", controls=(),
     eng = cell_mod.make_engine(lib, c.config, seed, device)
     start_digest = check.digest(reference.fields(eng.sim))
     t_engine = time.perf_counter()
-    feed = traffic.Feed(c.traffic, eng)
+    feed = traffic.Feed(c.traffic, eng, lib)
     warm = int(c.traffic.get("warm_frames", 3))
     for i in range(warm):
         feed.frame(i)
@@ -260,10 +284,19 @@ def run(c, seed, seconds, want_trace, t0, device="cuda", controls=(),
             f"{torch.cuda.device_count()} visible; nvidia-smi: {smi}")
 
     # The check: the program's state is freed but for the last frame's
-    # input and output, then the reference works that frame out again.
+    # input and output (and the respawn frame's after the window), then
+    # the reference works those frames out again.
     sim_in, sim_out = reference.fields(w.last_in), reference.fields(eng.sim)
     screen, last_i = w.screen, w.last_i
     w.last_in = None
+    spawn = None
+    if c.traffic.get("respawn"):
+        t_more = time.perf_counter()
+        spawn = run_to_respawn(feed, eng, last_i, clock)
+        log(f"after the window: frames {last_i + 1} to {spawn[0]}, the "
+            f"respawn frame, in {time.perf_counter() - t_more:.3f} s")
+        if clock.cuda:
+            plain = sum(cuda_lib.plain_calls.values())
     del eng, feed
     if clock.cuda:
         torch.cuda.empty_cache()
@@ -272,6 +305,11 @@ def run(c, seed, seconds, want_trace, t0, device="cuda", controls=(),
                             start_digest, device)
     ctl = {kind: check.control_numbers(c, seed, last_i, sim_in, kind, device)
            for kind in controls}
+    if spawn:
+        numbers.update(check.spawn_numbers(c, *spawn, device))
+        for kind in controls:
+            ctl[kind].update(check.control_spawn_numbers(
+                c, spawn[0], spawn[1], kind, device))
     log(f"check: {time.perf_counter() - t_check:.3f} s")
     correct, checks = check.verdict(numbers, c.limits)
     if plain:
@@ -308,6 +346,8 @@ def run(c, seed, seconds, want_trace, t0, device="cuda", controls=(),
             log(f"no complete trace in {w.traces} tries: the per-layer "
                 "metrics read from the trace are not measured")
             view = trace.TraceView(spans=dict(w.spans), config=c.config)
+        view.intervals_ms = [v for k, v in enumerate(w.intervals_ms)
+                             if k not in w.stretches]
         for m in c.per_layer:
             v = cell_mod.reader(m["name"])(view)
             if v is not None:

@@ -16,6 +16,12 @@ each from the program's own input to it:
         step's comparison): the flow and view grids, the next step's
         force and, where the mix has one, the screen.
 
+A frame before which the mix respawns the particles (`traffic.respawns`)
+starts from the respawned state (`Frame.enter`): the ball by row, from
+each row's id; previous the particles before it; no carried force, so the
+step gathers its force from the flow at the ball's positions, decayed to
+the frame's time (K5's semantics, `engine._step_force`).
+
 The draw takes the program's stepped positions because the splat places
 its samples on a grid of 1/pscale px: a position one float32 rounding
 away lands a sample in the next quantum wherever it lies within that
@@ -70,11 +76,13 @@ def start(config, seed, device, lowp=None):
     return {k: bf16(v) for k, v in out.items()} if lowp == "bf16" else out
 
 
-def frame_time(config, i):
-    """`(time, dt)` of a mix's frame `i`: the timer starts at 0, the spawn
-    ticks it once, each frame once more before it runs."""
+def frame_time(config, spec, i):
+    """`(time, dt)` of frame `i` of mix `spec`: the timer starts at 0, the
+    spawn ticks it once, each respawn and each frame once more before the
+    frame runs."""
     dt = config["dt_ms"]
-    return logic.ticks_time(0.0, dt, i + 2), dt
+    return logic.ticks_time(0.0, dt, i + 2 + traffic.respawns_through(spec,
+                                                                       i)), dt
 
 
 class Frame:
@@ -92,8 +100,9 @@ class Frame:
         self.p = logic.params(values, device)
         if lowp == "bf16":
             self.p = {k: bf16(v) for k, v in self.p.items()}
-        t, dt = frame_time(config, i)
-        t_prev, _ = frame_time(config, i - 1)
+        self.respawn = traffic.respawns(spec, i)
+        t, dt = frame_time(config, spec, i)
+        t_prev, _ = frame_time(config, spec, i - 1)
         self.time = torch.tensor(t, dtype=F32, device=device)
         self.dt = torch.tensor(dt, dtype=F32, device=device)
         self.p["time"] = self.time
@@ -101,10 +110,25 @@ class Frame:
         self.prev_read = (torch.tensor(t_prev, dtype=F32, device=device)
                           + self.dt)
 
+    def enter(self, sim_in):
+        """The state the frame's step starts from: `sim_in` (`{field:
+        tensor}`), on a respawn frame with the ball's particles by row and
+        `previous` the particles before it, no force carried."""
+        if not self.respawn:
+            return sim_in
+        r = self.spec["respawn"]
+        ball = logic.ball(sim_in["idx"], self.root_num, r["radius"],
+                          r["speed"])
+        if self.lowp == "bf16":
+            ball = bf16(ball)
+        return dict(sim_in, particles=ball, previous=sim_in["particles"],
+                    force=None)
+
     def step(self, sim_in):
         """The stepped state from the state before the frame (`{field:
         tensor}`, rows in any order): `{particles, previous, idx}`, rows
         in id order."""
+        sim_in = self.enter(sim_in)
         idx = sim_in["idx"]
         pin = _identity(sim_in["particles"], idx)
         tin = _identity(sim_in["targets"], idx)
@@ -112,11 +136,20 @@ class Frame:
         if self.lowp == "bf16":
             pin, tin, flow = bf16(pin), bf16(tin), bf16(flow)
         h, w = flow.shape[1:]
-        ps = draw_mod.pos_scale(h, w)
-        xq, yq = draw_mod.p1_words(pin[:2], self.view_size, h, w, ps)
-        eff = draw_mod.decayed(flow.double(), self.prev_read.double(),
-                               self.p["flowDecay"].double())
-        force = draw_mod.gather(eff, xq, yq, ps).to(F32)
+        if self.respawn:
+            # No carried force: gathered at the positions themselves from
+            # the flow decayed to the frame's time.
+            eff = draw_mod.decayed(flow.double(), self.time.double(),
+                                   self.p["flowDecay"].double())
+            x = (pin[0] * self.view_size[0] * 0.5 + 0.5) * w
+            y = (pin[1] * self.view_size[1] * 0.5 + 0.5) * h
+            force = draw_mod.sample(eff, x, y).to(F32)
+        else:
+            ps = draw_mod.pos_scale(h, w)
+            xq, yq = draw_mod.p1_words(pin[:2], self.view_size, h, w, ps)
+            eff = draw_mod.decayed(flow.double(), self.prev_read.double(),
+                                   self.p["flowDecay"].double())
+            force = draw_mod.gather(eff, xq, yq, ps).to(F32)
         ids = torch.arange(idx.numel(), dtype=torch.int32, device=idx.device)
         pos, vel = logic.step(pin, force, tin, ids, self.p, self.time,
                               self.dt, self.root_num)
@@ -130,6 +163,7 @@ class Frame:
         """The draw from the state before the frame and the stepped state
         (`{particles, idx}`, rows in any order): `{flow, view, force,
         idx}` (the force's rows in id order) and the screen or None."""
+        sim_in = self.enter(sim_in)
         pin = _identity(sim_in["particles"], sim_in["idx"])
         out = _identity(stepped["particles"], stepped["idx"])
         p = dict(self.p)

@@ -72,11 +72,17 @@ def decayed(flow, read_time, flow_decay):
 def gather(grid, xq, yq, ps):
     """Bilinear samples of `grid` (`[C, H, W]`) at the quantised p1 words,
     clamped to the texel centres at the edge: `[C, N]`."""
+    return sample(grid, xq.to(F64) / ps - PAD_LO_W,
+                  yq.to(F64) / ps - PAD_LO_H)
+
+
+def sample(grid, x, y):
+    """Bilinear samples of `grid` (`[C, H, W]`) at texel coordinates `x`,
+    `y` (`(0.5, 0.5)` the centre of texel [0, 0]), clamped to the texel
+    centres at the edge: `f64[C, N]`."""
     _, h, w = grid.shape
-    gx = torch.clamp(xq.to(F64) / ps, PAD_LO_W + 0.5, PAD_LO_W + w - 0.5) \
-        - 0.5 - PAD_LO_W
-    gy = torch.clamp(yq.to(F64) / ps, PAD_LO_H + 0.5, PAD_LO_H + h - 0.5) \
-        - 0.5 - PAD_LO_H
+    gx = torch.clamp(x.to(F64), 0.5, w - 0.5) - 0.5
+    gy = torch.clamp(y.to(F64), 0.5, h - 0.5) - 0.5
     c0, r0 = torch.floor(gx), torch.floor(gy)
     fx, fy = gx - c0, gy - r0
     c0, r0 = c0.long(), r0.long()

@@ -72,28 +72,34 @@ def _hash(x, y):
     return s - torch.floor(s)
 
 
-def start(root_num, view_res, radius, speed, device):
-    """The state after set-up and `spawn_ball(radius, speed)`: particles on
-    a disc from the hash of their data-texture coordinates
-    (`spawn.ball`), previous all inert, grids zero."""
+def ball(idx, root_num, radius, speed):
+    """`spawn_ball(radius, speed)`'s particles `f32[4, N]` for the particle
+    ids `idx`, a row each (`spawn.ball`): a disc from the hash of each
+    row's data-texture coordinate, the texel centre of its id."""
     r = root_num
-    n = r * r
-    idx = torch.arange(n, dtype=torch.int32, device=device)
     i = idx.to(torch.int64)
     fx = ((i % r).to(F32) + 0.5) / r * r
     fy = ((i // r).to(F32) + 0.5) / r * r
     u = [_hash(fx * a + b, fy * a + b) for a, b in (
         (1.7654, 2.3675), (1.23494, 0.36434), (0.327789, 3.498787),
         (9.0374, 0.2773))]
-    rad = torch.tensor(radius, dtype=F32, device=device)
-    spd = torch.tensor(speed, dtype=F32, device=device)
+    rad = torch.tensor(radius, dtype=F32, device=idx.device)
+    spd = torch.tensor(speed, dtype=F32, device=idx.device)
 
     def vec(angle, length):
         return torch.stack([torch.cos(angle) * length,
                             torch.sin(angle) * length])
 
-    particles = torch.cat([vec(u[0] * TAU, u[1] * rad),
-                           vec(u[2] * TAU, u[3] * spd)])
+    return torch.cat([vec(u[0] * TAU, u[1] * rad),
+                      vec(u[2] * TAU, u[3] * spd)])
+
+
+def start(root_num, view_res, radius, speed, device):
+    """The state after set-up and `spawn_ball(radius, speed)`: particles on
+    a disc (`ball`), previous all inert, grids zero."""
+    n = root_num * root_num
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    particles = ball(idx, root_num, radius, speed)
     inert = torch.cat([torch.full((2, n), INERT, dtype=F32, device=device),
                        torch.zeros(2, n, dtype=F32, device=device)])
     h, w = view_res

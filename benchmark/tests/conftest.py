@@ -12,7 +12,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-CELLS = ("tier1-headless", "show16m-show", "show16m-headless")
+CELLS = ("tier1-headless", "show16m-show", "show16m-headless",
+         "tier1-respawn")
 
 
 def pytest_configure(config):

@@ -42,3 +42,23 @@ def test_device_bound_metrics_only_in_their_cells():
         assert ("frame_ms.device_bound" in got) == tight
         assert ("frame_ms_p95.device_bound" in got) == tight
         assert {"frame_ms", "frame_ms_p95", "setup_s"} <= got
+
+
+def test_spawn_device_ms_only_where_the_mix_respawns():
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        c = cell.load(w["name"], bench)
+        got = {m["name"] for m in c.per_layer}
+        for name in ("spawn_device_ms", "spawn_host_ms"):
+            assert (name in got) == bool(c.traffic.get("respawn")), name
+
+
+def test_the_p95_is_held_end_to_end_where_the_mix_does_not_respawn():
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for w in bench["workloads"]:
+        c = cell.load(w["name"], bench)
+        respawns = bool(c.traffic.get("respawn"))
+        assert ("frame_ms_p95" in {m["name"] for m in c.end_to_end}) \
+            != respawns
+        assert ("frame_ms_p95.respawn"
+                in {m["name"] for m in c.per_layer}) == respawns

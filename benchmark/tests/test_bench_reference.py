@@ -32,10 +32,10 @@ def test_frame_times_come_from_the_seed_and_the_frame():
     lib = harness.program_lib()
     seed = 2 ** 31 + 99
     eng = cell.make_engine(lib, c.config, seed, "cpu")
-    feed = traffic.Feed(c.traffic, eng)
+    feed = traffic.Feed(c.traffic, eng, lib)
     for i in range(5):
         feed.frame(i)
-        t, dt = reference.frame_time(c.config, i)
+        t, dt = reference.frame_time(c.config, c.traffic, i)
         assert (eng.timer.time, eng.timer.dt) == (t, dt)
 
 
@@ -53,8 +53,9 @@ def test_a_frame_leaves_its_input_state_as_it_was(name):
     """The window holds the state a frame starts from, not a copy: no
     frame may write into it."""
     c = tiny(name)
-    eng = cell.make_engine(harness.program_lib(), c.config, 3, "cpu")
-    feed = traffic.Feed(c.traffic, eng)
+    lib = harness.program_lib()
+    eng = cell.make_engine(lib, c.config, 3, "cpu")
+    feed = traffic.Feed(c.traffic, eng, lib)
     for i in range(4):
         held = eng.sim
         copy = {k: (v.clone() if isinstance(v, torch.Tensor) else v)

@@ -92,3 +92,25 @@ def test_idle_gaps_name_the_host_call_or_the_program_span():
     assert "port:tt.logic" in names and "port" in dict(without.gaps)
     assert sorted(s for _, s in with_spans.gaps) == \
         sorted(s for _, s in without.gaps)
+
+
+def test_spawn_device_ms_reads_what_the_spawn_span_launched():
+    """The device time of the operations whose launch call began inside
+    `bench.spawn` (matched by correlation id), over the spans; nothing to
+    read in a stretch without one."""
+    cuda = DeviceType.CUDA
+    ev = _events(True)
+    assert cell.reader("spawn_device_ms")(_view(True)) is None
+    t = 10  # the first frame: a respawn before its entry
+    ev += [_ev("bench.spawn", t + 1.5, t + 2.5),
+           _ev("cudaLaunchKernel", t + 1.6, t + 1.7),
+           _ev("cudaLaunchKernel", t + 1.8, t + 1.9),
+           _ev("vectorized_elementwise_kernel", t + 3, t + 3.25, cuda),
+           _ev("vectorized_elementwise_kernel", t + 3.25, t + 4, cuda)]
+    for k, e in enumerate(ev[-4:]):
+        e.id = 900 + k % 2
+    view = trace.parse(ev, 2)
+    assert view is not None
+    assert view.span_calls["spawn"] == [1, 1.0]
+    assert view.span_calls["frame"][0] == 2
+    assert cell.reader("spawn_device_ms")(view) == 1.0 / 1e3

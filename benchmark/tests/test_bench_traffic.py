@@ -27,9 +27,10 @@ def test_inputs_repeat_with_the_seed_and_differ_between_seeds(name):
 def _states(c, seed):
     """The state at the spawn and after the mix's warm frames."""
     from benchmark import cell
-    eng = cell.make_engine(harness.program_lib(), c.config, seed, "cpu")
+    lib = harness.program_lib()
+    eng = cell.make_engine(lib, c.config, seed, "cpu")
     spawned = reference.fields(eng.sim)
-    feed = traffic.Feed(c.traffic, eng)
+    feed = traffic.Feed(c.traffic, eng, lib)
     for i in range(c.traffic["warm_frames"]):
         feed.frame(i)
     return spawned, reference.fields(eng.sim)

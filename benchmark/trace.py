@@ -74,12 +74,18 @@ class TraceView:
     to the end of its last device operation; `spans`: host seconds a frame
     of the window's untraced frames, by name (`traffic.Feed`); `counters`:
     the program's launch counters over the stretch; `config`: the cell's
-    configuration file; `power_limit`: the card's, as nvidia-smi prints it.
-    A reader that finds nothing to read returns None."""
+    configuration file; `power_limit`: the card's, as nvidia-smi prints it;
+    `span_calls`: the harness's spans in the stretch by name (`spawn` for
+    `bench.spawn`), each `[count, device_us]`, the device time that of
+    the operations launched inside a span of that name and in none
+    nested in it; `intervals_ms`: the times between the end events of the
+    window's frames outside the traced stretch. A reader that
+    finds nothing to read returns None."""
 
     def __init__(self, frames=0, device_ops=(), launch_calls=0,
                  stretch=None, spans=None, counters=None, config=None,
-                 power_limit="not measured", gaps=()):
+                 power_limit="not measured", gaps=(), span_calls=None,
+                 intervals_ms=()):
         self.frames = frames
         self.device_ops = list(device_ops)
         self.launch_calls = launch_calls
@@ -89,6 +95,8 @@ class TraceView:
         self.config = config or {}
         self.power_limit = power_limit
         self.gaps = list(gaps)
+        self.span_calls = span_calls or {}
+        self.intervals_ms = list(intervals_ms)
 
     def busy_us(self):
         if self.stretch is None:
@@ -110,6 +118,7 @@ def parse(events, frames):
     from torch.autograd import DeviceType
     asked = recorded = 0
     device_ops, cpu_ops, spans = [], [], []
+    launched_at, launched = {}, []  # correlation id -> the call's start
     for ev in events:
         start, end = ev.time_range.start, ev.time_range.end
         if ev.device_type == DeviceType.CUDA:
@@ -119,12 +128,14 @@ def parse(events, frames):
             if PAD_KERNEL in ev.name:
                 continue
             device_ops.append((ev.name, start, end))
+            launched.append((getattr(ev, "id", None), end - start))
         elif ev.device_type == DeviceType.CPU:
             if _is_span(ev):
                 spans.append((ev.name, start, end))
                 continue
             if ev.name.startswith(RUNTIME_CALLS):
                 asked += 1
+                launched_at[getattr(ev, "id", None)] = start
             cpu_ops.append((ev.name, start, end))
     frame_spans = sorted((s, e) for n, s, e in spans
                          if n == SPAN_PREFIX + "frame")
@@ -138,7 +149,28 @@ def parse(events, frames):
     gaps = name_gaps(gaps_us([(s, e) for _, s, e in ops], *stretch), spans,
                      cpu_ops)
     return TraceView(frames=frames, device_ops=ops, launch_calls=launch_calls,
-                     stretch=stretch, gaps=gaps)
+                     stretch=stretch, gaps=gaps,
+                     span_calls=span_calls(spans, launched_at, launched))
+
+
+def span_calls(spans, launched_at, launched):
+    """`{name: [count, device_us]}` of the harness's spans (`bench.<name>`):
+    how many there are, and the device time of the operations whose
+    launching call began inside one and in no span nested in it. Each
+    launch is placed once, by its start (`launched_at`, by correlation
+    id); `launched`: each device operation's `(correlation id, us)`."""
+    out = {}
+    for name, _, _ in spans:
+        out.setdefault(name[len(SPAN_PREFIX):], [0, 0.0])[0] += 1
+    held = {}
+    for cid, t in launched_at.items():
+        span = _innermost(spans, t)
+        if cid is not None and span:
+            held[cid] = span[0][len(SPAN_PREFIX):]
+    for cid, us in launched:
+        if cid in held:
+            out[held[cid]][1] += us
+    return out
 
 
 def _innermost(intervals, t):
@@ -154,8 +186,8 @@ def name_gaps(gaps, spans, cpu_ops, top=TOP):
     """The `top` longest idle gaps, each `(name, seconds)`, named by the
     harness span and the innermost host operation the host was in as it
     began (`bench.wait`, a frame's wait for the frame two before it;
-    `bench.port`, a call into the program; `bench.camera`, the camera
-    stage; `loop`, between spans)."""
+    `bench.port`, a call into the program; `bench.spawn`, a respawn
+    inside it; `loop`, between spans)."""
     longest = sorted(gaps, key=lambda g: g[0] - g[1])[:top]
     out = []
     for a, b in longest:

@@ -7,7 +7,11 @@ A mix's file may hold:
   warm_frames  frames of the mix run in set-up, before the window;
   state_cycle  `{key, base, step, period}`: the state key set to
                `base + step * (i mod period)` before frame i;
-  bokeh        the post stage's `(radius, amount)`.
+  bokeh        the post stage's `(radius, amount)`;
+  respawn      `{every, radius, speed}`: before frame i, where i > 0 and
+               i mod every = 0, the particles are respawned in a ball
+               (`spawn_ball(radius, speed)`, which ticks the timer once),
+               inside the entry's span.
 """
 
 import contextlib
@@ -20,6 +24,8 @@ import torch
 TRAFFIC_DIR = pathlib.Path(__file__).resolve().parent / "traffic"
 # The state's fields that hold a row a particle, in the rows' order.
 ROW_FIELDS = ("particles", "previous", "targets", "idx")
+
+
 def load(name):
     """The parameters of traffic mix `name`."""
     return json.loads((TRAFFIC_DIR / f"{name}.json").read_text())
@@ -45,16 +51,44 @@ def state(spec, i):
     return {c["key"]: c["base"] + c["step"] * (i % c["period"])}
 
 
+def respawns(spec, i):
+    """Whether mix `spec` respawns the particles before frame `i`."""
+    r = spec.get("respawn")
+    return bool(r) and i > 0 and i % r["every"] == 0
+
+
+def respawns_through(spec, i):
+    """The respawns of mix `spec` before frames 0 to `i`."""
+    r = spec.get("respawn")
+    return max(i, 0) // r["every"] if r else 0
+
+
 class Feed:
     """Feeds one engine the mix's inputs, a frame a call. Records, with
     `spans`, the host seconds of each frame's calls into the engine
-    (`frame`) and of the entry alone (`port`)."""
+    (`frame`), of the entry alone (`port`, the respawn included) and of
+    the respawn (`spawn`, in the frames that have one). `lib`: the
+    program's modules (`harness.program_lib()`), which a mix that respawns
+    needs. With `keep_spawned` set, `spawned` holds the state a respawn
+    left, before the frame's entry ran on it."""
 
-    def __init__(self, spec, eng):
+    def __init__(self, spec, eng, lib=None):
         self.spec, self.eng = spec, eng
         self.io = spec["entry"] == "step_draw_io"
         if spec["entry"] not in ("frame", "step_draw_io"):
             raise ValueError(f"unknown entry: {spec['entry']}")
+        self.spawner = None
+        r = spec.get("respawn")
+        if r:
+            if not (isinstance(r["every"], int) and r["every"] > 0):
+                raise ValueError(f"respawn every: {r['every']!r}, not a "
+                                 "whole number above 0")
+            if lib is None:
+                raise ValueError("a mix that respawns needs the program's "
+                                 "modules (`lib`)")
+            self.spawner = lib.spawn_ball(radius=r["radius"],
+                                          speed=r["speed"])
+        self.keep_spawned, self.spawned = False, None
         # `mark(name)`: a context around the entry call, for the traced
         # stretch's spans (`bench.<name>`).
         self.mark = lambda name: contextlib.nullcontext()
@@ -67,6 +101,13 @@ class Feed:
         eng.state.update(state(spec, i))
         t1 = clock()
         with self.mark("port"):
+            if self.spawner is not None and respawns(spec, i):
+                with self.mark("spawn"):
+                    self.spawner.spawn(eng)
+                if spans is not None:
+                    spans["spawn"].append(clock() - t1)
+                if self.keep_spawned:
+                    self.spawned = eng.sim
             if self.io:
                 eng.timer.tick()
                 screen = eng.step_draw_io(bokeh=spec.get("bokeh"))
