@@ -55,9 +55,11 @@ readings of the same frame:
      what it launched, its launches and its host ms in synchronising
      calls, a frame; each layer with the spans nested in it (the logic
      step against its least time, the draw, the sort, the post stage);
-     and the share of the device time that no span holds. With `--merge`
-     the host's wait for the merge's `ok` is span `draw.wait`'s host
-     time, beside the merged and fallback counts;
+     and the share of the device time that no span holds. With the
+     merge on (`--merge`, or a cell whose configuration turns it on) the
+     merge's device ms (span `draw.merge`), the refused merges' flat sort
+     (`draw.fallback`) and the host's wait for the merge's `ok`
+     (`draw.wait`'s host time), beside the merged and fallback counts;
   3. each stage alone: the device synchronised before and after it, so
      its wall time is its own host and device time with no overlap. For
      this reading the script wraps the stage functions of the port's
@@ -432,7 +434,8 @@ def main():
         return profile_k9_k11()
     import chip_smoke
     from tendrils_tpu_torch import models
-    from tendrils_tpu_torch.engine import fused_draw_ok
+    from tendrils_tpu_torch.engine import (fused_draw_ok,
+                                           merge_reorder_enabled)
     from tendrils_tpu_torch.feeds import IoFeed
     from tendrils_tpu_torch.ops import cuda_lib, spawn
     if args.demo:
@@ -446,9 +449,9 @@ def main():
     elif args.cell:
         from benchmark import cell, harness, traffic
         c = cell.load(args.cell)
-        eng = cell.make_engine(harness.program_lib(), c.config, args.seed,
-                               "cuda")
-        feed = traffic.Feed(c.traffic, eng)
+        lib = harness.program_lib()
+        eng = cell.make_engine(lib, c.config, args.seed, "cuda")
+        feed = traffic.Feed(c.traffic, eng, lib)
     else:
         eng = chip_smoke.config1() if args.model == "default-preview" \
             else models.build(args.model)
@@ -576,11 +579,16 @@ def main():
               f"{name} {dev[k] / calls[k]:.4f} x {calls[k] / n:g}"
               for name, k in own))
     by = print_spans(prof.events(), n, eng.config.n)
-    if args.merge:
-        wait = by.get("tt.draw.wait")
-        print("    the host's wait for the merge's ok (span draw.wait): "
-              + (f"{wait.host_us / 1e3 / n:.4f} ms a frame"
-                 if wait else "no span") + f"; {dict(cuda_lib.events)}")
+    if merge_reorder_enabled(eng.config):
+        none = profiling.SpanTimes()
+        merge, fallback, wait = (by.get("tt.draw." + k, none)
+                                 for k in ("merge", "fallback", "wait"))
+        print(f"    the merge, a frame: device ms "
+              f"{merge.device_us / 1e3 / n:.4f} (span draw.merge), the "
+              f"refused merges' flat sort "
+              f"{fallback.device_us / 1e3 / n:.4f} (draw.fallback), the "
+              f"host's wait for its ok {wait.host_us / 1e3 / n:.4f} "
+              f"(draw.wait); {dict(cuda_lib.events)}")
 
     acc = collections.Counter()
     patched = _stage_timers(acc, generic=not fused_draw_ok(eng.config))

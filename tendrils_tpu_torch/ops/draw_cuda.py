@@ -750,16 +750,20 @@ def _merge_or_sort(keym, reorder, n_tiles, idx_bits):
     sort when its guards trip. Its `ok` is read on the host, the frame's
     one synchronisation (the JAX package picks with `lax.cond` on the
     device); each read counts in `cuda_lib.events` as `reorder_merged` or
-    `reorder_fallback`. Returns `(keym_s, perm, carry)`, carry = the
-    sorted keys and their tile census, the next frame's `reorder`."""
-    ok, keym_s, perm, hist = reorder_cuda.merge_reorder(
-        keym, *reorder, n_tiles=n_tiles, idx_bits=idx_bits)
+    `reorder_fallback`. Spans `draw.merge` (K10, the censuses, the C sort,
+    K11) and `draw.fallback` (the refused merge's flat sort and census).
+    Returns `(keym_s, perm, carry)`, carry = the sorted keys and their
+    tile census, the next frame's `reorder`."""
+    with span("draw.merge"):
+        ok, keym_s, perm, hist = reorder_cuda.merge_reorder(
+            keym, *reorder, n_tiles=n_tiles, idx_bits=idx_bits)
     if _read_ok(ok):
         cuda_lib.events["reorder_merged"] += 1
     else:
         cuda_lib.events["reorder_fallback"] += 1
-        keym_s, perm = torch.sort(keym)
-        hist = reorder_cuda.tile_hist(keym >> idx_bits, n_tiles)
+        with span("draw.fallback"):
+            keym_s, perm = torch.sort(keym)
+            hist = reorder_cuda.tile_hist(keym >> idx_bits, n_tiles)
     return keym_s, perm, (keym_s, hist)
 
 

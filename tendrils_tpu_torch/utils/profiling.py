@@ -35,6 +35,8 @@ SPANS = (
     "draw",       # draw: engine.draw_sim, force_from_aux; device ms
     "draw.sort",  # draw: the sort and its gathers (_bin_and_splat); device ms
     "draw.wait",  # draw: the merge's ok read (in the sort); host wait ms
+    "draw.merge",  # draw: the merge reorder, K10 to K11 (in the sort)
+    "draw.fallback",  # draw: a refused merge's flat sort (in the sort)
     "post",       # post stage: blur and bokeh (engine._frame_io); device ms
 )
 _NULL = contextlib.nullcontext()

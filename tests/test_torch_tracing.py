@@ -2,6 +2,8 @@
 CPU under `torch.profiler` emits each layer's span inside its parent's,
 names only spans of `profiling.SPANS`, and computes the same bits as
 with no profiler; with none running a span is one shared null context.
+With the merge reorder on, a merged frame records `draw.merge`, a
+refused one `draw.fallback` too, and a frame with it off neither.
 `profiling.by_span` attributes made-up device events to the innermost
 span that launched them."""
 
@@ -104,6 +106,47 @@ def test_frame_bit_equal_with_and_without_the_profiler(runs):
         else:
             assert torch.equal(a, b), f.name
     assert torch.equal(screen_on, screen_off)
+
+
+@pytest.fixture(scope="module")
+def merge_frames():
+    """The merge's spans, a frame each: with the merge on at 16,384 rows
+    (the fewest it admits), the frame after `reseed_derived` (every row
+    churned: the merge is refused and the frame flat-sorts) and the next
+    (merged); with it off, one frame. `{case: [(name, start, end)]}`."""
+    out = {}
+    for merge in (True, False):
+        eng = tt.Tendrils(tt.EngineConfig(**dict(
+            CFG, root_num=128, merge_reorder=merge)), device="cpu")
+        eng.setup()
+        spawn_ball(radius=0.6, speed=0.01).spawn(eng)
+        eng.reseed_derived()
+        for case in (("reseeded", "merged") if merge else ("off",)):
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                eng.frame()
+            out[case] = _spans(prof.events())
+    return out
+
+
+@pytest.mark.parametrize("case,want", [
+    ("reseeded", {"draw.merge", "draw.fallback"}),
+    ("merged", {"draw.merge"}),
+    ("off", set()),
+])
+def test_the_merge_and_its_fallback_have_spans(merge_frames, case, want):
+    spans = merge_frames[case]
+    got = {n[len(profiling.PREFIX):] for n, _, _ in spans}
+    assert got & {"draw.merge", "draw.fallback"} == want
+    assert ("draw.wait" in got) == bool(want)
+    # Each lies in the sort, the fallback after the merge's ok was read.
+    sort = [(s, e) for n, s, e in spans if n == "tt.draw.sort"]
+    at = {n: (s, e) for n, s, e in spans}
+    for name in want | ({"draw.wait"} if want else set()):
+        s, e = at["tt." + name]
+        assert any(ps <= s and e <= pe for ps, pe in sort), name
+    if "draw.fallback" in want:
+        assert at["tt.draw.merge"][1] <= at["tt.draw.wait"][0]
+        assert at["tt.draw.wait"][1] <= at["tt.draw.fallback"][0]
 
 
 def _ev(name, start, end, cid=0, device=DeviceType.CPU, annotation=False):
