@@ -192,12 +192,14 @@ version and bit-equal to K3's view from the 11 channels, timed at config
 1.
 Phase 3 holds K2 (four launches: the plan, the tile pass in shared
 memory, the strays, the conversion of its int64 sums) in every variant
-on three more sorted streams: a real config-2 frame's after 30 frames, a
-classic p0 stream with long segments (its stray pass must add samples)
-and a real config-3 frame's (keys in the merge's order; it must split
-tiles), printing the partition the kernels ran on each (rows a tile,
-split tiles, the stray pass's count); on every stream each variant runs
-twice and must give the same bits, as K9 must at config 4. It holds K5 (two launches
+on four more sorted streams: a real config-2 frame's after 30 frames, a
+classic p0 stream with long segments (its stray pass must add samples),
+a real config-3 frame's (keys in the merge's order; it must split
+tiles) and a late config-5 frame's (950 frames: the particles clustered
+into filaments), printing the partition the kernels ran on each (rows a
+tile, split tiles, the stray pass's count); on every stream each variant
+runs twice and must give the same bits, as K9 must at config 4, and the
+stream's own variant's int64 sums must equal the plain version's. It holds K5 (two launches
 for the 2-channel flow: the interleaved copy, the gather) at config 2,
 with 3 channels, and at config-3 and config-5 shapes (4,194,304 and
 16,777,216 points after a ball spawn, edge points included) within rtol
@@ -710,8 +712,9 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
     on a second call with the same inputs. Prints the partition the kernels ran
     on the stream's own variant (`draw_cuda.splat_planned`), its tile
     ranges held to `torch.searchsorted`: rows a key tile and an output
-    tile's weighted source rows (max, median), the split tiles and the
-    samples the stray pass added. With `exact`, the
+    tile's source rows (max, median), the split tiles and the
+    samples the stray pass added; that variant's int64 sums must equal
+    `splat_sums_plain`'s. With `exact`, the
     stream's own variant also within 1e-5 of each channel's max of
     `exact_splat`, the plain version's distance from it printed beside.
     `flow_off`, `adds_rows` and `reduce` are a recorded call's own: the
@@ -747,8 +750,13 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
             fail(f"{name} ({label}): two calls on one input differ in "
                  f"{(got != again).sum().item()} texels")
         del got, want, again
-    _, info, queue = draw_cuda.splat_planned(
+    sums, info, queue = draw_cuda.splat_planned(
         scal, keym_s, p1, vl, p0=p0, rgba=rgba, **kw)
+    if not torch.equal(sums, draw_cuda.splat_sums_plain(
+            scal, p1, vl, p0=p0, rgba=rgba, **kw_plain(kw))):
+        fail(f"K2 ({label}): the int64 sums differ from the plain "
+             "version's")
+    del sums
     info = info.reshape(-1, draw_cuda.SPLAT_INFO)
     # The plan's searches: each tile's own rows, from its first to the
     # next tile's.
@@ -761,7 +769,7 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
              "torch.searchsorted of the sorted keys' tiles")
     rows = torch.diff(starts).float()
     work = info[:, 7].float()
-    chunk = draw_cuda.split_chunk(n)
+    chunk = draw_cuda.split_chunk(n, info.shape[0])
     split = (info[:, 6] > 1).sum().item()
     queued, strays = queue[:2].tolist()
     if queued > draw_cuda.queue_cap(n, chunk) or (split == 0) != (queued == 0):
@@ -772,11 +780,12 @@ def check_splat_stream(label, scal, keym_s, p1, vl, *, idx_bits, samples,
           f"version "
           f"(max |d| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f"); rows a key tile max {rows.max().item():.0f}, median "
-          f"{rows.median().item():.0f}; an output tile's weighted source "
-          f"rows (sixteenths) max {work.max().item():.0f}, median "
+          f"{rows.median().item():.0f}; an output tile's source rows max "
+          f"{work.max().item():.0f}, median "
           f"{work.median().item():.0f}, {split} of {info.shape[0]} tiles "
           f"split (> {chunk}) into {queued} parts; {strays} of "
-          f"{samples * n} samples stray")
+          f"{samples * n} samples stray; int64 sums equal the plain "
+          "version's")
     if exact:
         native = dict(kw_plain(kw), p0=p0, rgba=rgba)
         ref = exact_splat(scal, p1, vl, **native)
@@ -2056,12 +2065,18 @@ def check_merge_kernels():
     return out
 
 
+# Frames before the late config-5 frame K2 is held on: a 30 s window of
+# the 16.7M cells ends about here, the particles drawn into filaments.
+LATE_FRAMES = 950
+
+
 def check_splat_streams():
     """Phase 3's K2 part beyond the seeded streams: the sorted stream of a
     real config-2 frame after 30 frames (flow feedback has clustered the
-    particles), and a classic p0 stream at config 2 in gather mode 2 with
+    particles), a classic p0 stream at config 2 in gather mode 2 with
     a twentieth of its p0 anywhere on the grid (segments across tiles:
-    strays)."""
+    strays), and the sorted stream of a config-5 frame after
+    `LATE_FRAMES` frames (16,777,216 rows in filaments)."""
     from tendrils_tpu_torch import models
     from tendrils_tpu_torch.ops import draw_cuda
     args, kw = capture_frame(models.build("1m-flow"), 30,
@@ -2078,6 +2093,12 @@ def check_splat_streams():
         pscale=c["pscale"], p0=p0_s, rgba=rgba_s)[1]
     if strays == 0:
         fail("K2: the long-segment stream has no strays")
+    args, kw = capture_frame(models.build("16m-live-show"), LATE_FRAMES,
+                             (draw_cuda, "splat"))["splat"]
+    check_splat_stream(f"sorted stream of a config-5 frame after "
+                       f"{LATE_FRAMES} frames", *args, **kw)
+    del args, kw
+    torch.cuda.empty_cache()
 
 
 def check_view_only_kernels():

@@ -44,10 +44,10 @@
 //
 //   1. `splat_plan_kernel`, one block per output tile: binary-searches the
 //      sorted keys for the rows of its <= 4 source tiles (ty-1..ty,
-//      tx-1..tx; two contiguous runs), splits a tile whose rows weigh more
-//      than `chunk` (INFO: a clustered tile's own rows are its work) into
-//      parts, queues them (their blocks run first, so a heavy tile is not
-//      the tail) and zeroes the split tile's texels of the int64 scratch.
+//      tx-1..tx; two contiguous runs), splits a tile with more than
+//      `chunk` source rows (INFO) into parts, queues them (their blocks
+//      run first, so a heavy tile is not the tail) and zeroes the split
+//      tile's texels of the int64 scratch.
 //      (Searching in the wrapper instead, with `torch.searchsorted`, left
 //      the tile pass 0.1 ms slower in a config-2 frame on an H100, for
 //      reasons not found.)
@@ -63,10 +63,15 @@
 //      lineWidth 1), each walking its column's rows: a sample's adds fall
 //      on distinct texels at once, where one sample a lane put
 //      neighbouring sorted samples on the same texels (1.4x slower on an
-//      H100). Bound here: the shared adds and their bank conflicts. Hopper
+//      H100). Bound here: the shared adds, which do not slow as the
+//      particles cluster (an H100 spends less block time a deposit in a
+//      dense part than in a sparse one), so with the part cut above the
+//      pass takes 0.53-0.55 ns a sample in a 16.7M frame, spread or late
+//      in a window. Hopper
 //      has no shared float add and no shared 64-bit integer add (each is a
 //      compare-and-swap loop, ATOMS.CAST.SPIN and ATOMS.CAST.SPIN.64), so
-//      a deposit is two native 32-bit adds (`add64`);
+//      a deposit is two native 32-bit adds (`add64`); split lo and hi word
+//      planes, or a warp's rows taken sample by sample, were slower;
 //   3. `splat_stray_kernel`, one thread per (segment, sample): the samples
 //      that do NOT fit their key tile's region (long segments, such as a p0
 //      far from p1 after a respawn) with global 64-bit atomics, counted;
@@ -98,13 +103,13 @@ constexpr int TILE_SMEM =
     N_VIEW * SPLANE * (int)sizeof(long long);  // 199,680 B
 // Per-tile plan words: the starts of its source tiles' runs, above-left,
 // above, left and its own, and their end (a0, am, a1, b0, bm, b1), the
-// parts and the weighted rows w. A part's work is the samples that land
-// in the tile, not its rows: nearly all of the tile's own rows do, about
-// half of the row above's (boxes across the tile edge), few of the left
-// and above-left tiles' (a 256-texel edge), so rows weigh 16, 8, 1 and 1
-// sixteenths (their sum, 26, sizes draw_cuda.queue_cap).
+// parts and the source rows. Every source row counts alike in the part
+// cut: a row keyed in a neighbouring tile can land in this one as fully
+// as the tile's own, where the flow piles particles along an edge of the
+// grid (at 16.7M late in a window, such tiles take ~1M samples: counted
+// at less than a full row, they stay whole, and their blocks run ~10 ms
+// past the rest of the pass on an H100).
 constexpr int INFO = 8;
-constexpr int W_DIAG = 1, W_ABOVE = 8, W_LEFT = 1, W_OWN = 16;
 
 struct Params {
   const float* scal;
@@ -346,11 +351,8 @@ __global__ void splat_plan_kernel(const int* __restrict__ keys, int n,
     const int b0 = tile_start(keys, n, bits, ty * tiles_x + lo);
     const int bm = tile_start(keys, n, bits, t);
     const int b1 = tile_start(keys, n, bits, t + 1);
-    const long long w = (long long)W_DIAG * (am - a0) +
-                        (long long)W_ABOVE * (a1 - am) +
-                        (long long)W_LEFT * (bm - b0) +
-                        (long long)W_OWN * (b1 - bm);
-    const int parts = w > chunk ? (int)((w + chunk - 1) / chunk) : 1;
+    const int w = (a1 - a0) + (b1 - b0);
+    const int parts = w > chunk ? (w + chunk - 1) / chunk : 1;
     int* in = info + INFO * t;
     in[0] = a0;
     in[1] = am;
@@ -359,7 +361,7 @@ __global__ void splat_plan_kernel(const int* __restrict__ keys, int n,
     in[4] = bm;
     in[5] = b1;
     in[6] = parts;
-    in[7] = w < 2147483647LL ? (int)w : 2147483647;
+    in[7] = w;
     if (parts > 1) {
       const int base = atomicAdd(queue, parts);
       for (int j = 0; j < parts && base + j < queue_cap; ++j) {
@@ -383,21 +385,6 @@ __global__ void splat_plan_kernel(const int* __restrict__ keys, int n,
     *reinterpret_cast<longlong2*>(tile0 + ch * plane + (long long)r * wp +
                                   2 * c2) = make_longlong2(0, 0);
   }
-}
-
-// The first of a tile's source rows, laid end to end (above-left, above,
-// left, own: n1..n4 rows), whose weighted start is at least x: part j of
-// `parts` takes the rows from at(w * j / parts) to at(w * (j + 1) /
-// parts).
-__device__ __forceinline__ int weighted_row(long long x, int n1, int n2,
-                                            int n3) {
-  const long long c1 = (long long)W_DIAG * n1;
-  const long long c2 = c1 + (long long)W_ABOVE * n2;
-  const long long c3 = c2 + (long long)W_LEFT * n3;
-  if (x <= c1) return (int)((x + W_DIAG - 1) / W_DIAG);
-  if (x <= c2) return n1 + (int)((x - c1 + W_ABOVE - 1) / W_ABOVE);
-  if (x <= c3) return n1 + n2 + (int)((x - c2 + W_LEFT - 1) / W_LEFT);
-  return n1 + n2 + n3 + (int)((x - c3 + W_OWN - 1) / W_OWN);
 }
 
 // --- pass 2: the tile pass ---------------------------------------------------
@@ -490,12 +477,11 @@ __device__ __forceinline__ void tile_body(const Params& P, int t, int part,
   const int* in = info + INFO * t;
   const int a0 = in[0], na = in[2] - in[0], b0 = in[3];
   const int parts = in[6];
-  const int n1 = in[1] - in[0], n2 = in[2] - in[1], n3 = in[4] - in[3];
-  const long long w = (long long)W_DIAG * n1 + (long long)W_ABOVE * n2 +
-                      (long long)W_LEFT * n3 +
-                      (long long)W_OWN * (in[5] - in[4]);
-  const int lo = weighted_row(w * part / parts, n1, n2, n3);
-  const int hi = weighted_row(w * (part + 1) / parts, n1, n2, n3);
+  // Part j of `parts` takes rows [w j / parts, w (j + 1) / parts) of the
+  // source rows laid end to end (above-left, above, left, own).
+  const long long w = in[7];
+  const int lo = (int)(w * part / parts);
+  const int hi = (int)(w * (part + 1) / parts);
   const float width = group_width<NCH>(P.scal);
   const float hw = width * 0.5f;
   const float inv_w = 1.0f / width;
@@ -713,7 +699,7 @@ Params make_params(const float* scal, const int* keys, const int* p1,
 
 // Pass 1. `keys`: i32[n], tile-sorted, `tile << bits | id`; `info`:
 // i32[INFO x tiles]; `queue`: i32[QUEUE_HEAD + 2 x queue_cap]; `chunk`:
-// the most weighted rows a part takes; `ch0`: the global channel of the
+// the most source rows a part takes; `ch0`: the global channel of the
 // scratch's first plane (0, or N_FLOW under flow_off); `fix`: the int64
 // [N_CHAN - ch0, hp, wp] scratch.
 extern "C" int tt_splat_plan(const int* keys, int n, int bits, int hp, int wp,

@@ -365,7 +365,7 @@ def pack_plain(scal, p1_pix, vel, live, idx, *, grid_hw, pscale, p0_pix=None,
 # plan, the tile pass, the stray pass and the conversion (`csrc/splat.cu`).
 SPLAT_LAUNCHES = 4
 # Words of K2's plan: per output tile (`INFO`) the run starts of its source
-# tiles, its parts and its weighted rows; the queue's head, the counts of
+# tiles, its parts and its source rows; the queue's head, the counts of
 # queued parts and of strays, before its (tile, part) pairs.
 SPLAT_INFO = 8
 SPLAT_QUEUE_HEAD = 2
@@ -419,7 +419,7 @@ def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
     turns into the accumulator, and the plan the launches ran (per tile
     `SPLAT_INFO` words: the run starts of its source tiles above-left,
     above, left and its own, and the end of its own, at 0-5, its parts at
-    6, its weighted rows at 7; the queue's counts of parts and strays at
+    6, its source rows at 7; the queue's counts of parts and strays at
     0 and 1)."""
     n = p1.shape[0]
     adds_rows = n if adds_rows is None else adds_rows
@@ -431,7 +431,7 @@ def splat_planned(scal, keym_s, p1, vl, *, idx_bits, samples, grid_hw,
         if t is not None:
             cuda_lib.check(t, name, _I32, (n,))
     tiles_y, tiles_x = splat_tiles(grid_hw)
-    chunk = split_chunk(n)
+    chunk = split_chunk(n, tiles_y * tiles_x)
     cap = queue_cap(n, chunk)
     dev = p1.device
     # The fixed-point sums of the planes from global channel ch0 on.
@@ -692,21 +692,25 @@ def splat_tiles(grid_hw):
     return hp // TILE_H, wp // TILE_W
 
 
-def split_chunk(n):
-    """The most weighted rows (`csrc/splat.cu` W_DIAG..W_OWN, sixteenths
-    of a row by source tile) one tile-pass block takes: a tile whose
-    source rows weigh more is split into parts that add into it with
-    global atomics. The weights of all tiles sum to 26n; a part stays
-    under 1/520 of that (~264 blocks run at once on an H100), and a tile
-    of uniform density at configs 2 and 3 stays whole."""
-    return max(4096, n // 20)
+def split_chunk(n, tiles):
+    """The most source rows one tile-pass block takes (`csrc/splat.cu`
+    INFO) for n rows on `tiles` output tiles: twice a tile's mean, 4n /
+    tiles (each row is a source of 4 output tiles). A tile with more is
+    split into parts that add into it with global atomics; one with fewer
+    stays whole, since each split costs its tile's zeroing and its parts'
+    atomic write-out. On an H100, parts of n // 320 rows split most tiles
+    of a uniform config-2 stream and slowed its tile pass by a fifth; at
+    16.7M on 4K's 2,484 tiles (this bound ~n // 310), parts of n // 128
+    rows left a late frame's pass 6 % slower, its largest parts the
+    tail."""
+    return max(256, -(-8 * n // tiles))
 
 
 def queue_cap(n, chunk):
-    """Room for the parts of split tiles: a split tile weighs over `chunk`
-    and has at most `2 weight / chunk` parts, and the weights of all tiles
-    sum to 26n."""
-    return -(-2 * 26 * n // chunk)
+    """Room for the parts of split tiles: a split tile has over `chunk`
+    source rows and at most `2 rows / chunk` parts, and the source rows
+    of all tiles sum to 4n."""
+    return -(-2 * 4 * n // chunk)
 
 
 # --- sort + orchestration --------------------------------------------------

@@ -12,7 +12,7 @@ with the port's K1 (plain) and with the JAX `_pack_core` (eager), sorts it
 deposits of both passes, part by part, sum to `splat_plain`.
 
 The grid's tiles and the queue's room are the wrapper's own code. The
-tile ranges (`tile_start`), the part cut (`weighted_row`) and the fit test
+tile ranges (`tile_start`), the part cut (`tile_body`) and the fit test
 (`fits_key_tile`) run only in CUDA: below they are transcribed into
 Python, and only their constants are read from the CUDA source. So these
 tests hold the partition's design to the reference; that the kernels
@@ -52,12 +52,6 @@ IDS = [c[0] for c in CASES]
 
 # --- the CUDA partition, transcribed --------------------------------------
 
-# Weights, in sixteenths of a row, of an output tile's source rows in its
-# tile-pass work, for the source tiles above-left, above, left and itself
-# (`_source_runs`' order): `splat.cu` W_DIAG..W_OWN.
-SPLIT_WEIGHTS = (1, 8, 1, 16)
-
-
 def _tile_starts(keym_s, bits, n_tiles):
     """First row of each tile, and the end, in the tile-sorted keys: `i32
     [n_tiles + 1]` (the plan's `tile_start`, the tile read from the sorted
@@ -78,35 +72,24 @@ def _source_runs(starts, tile, tiles_x):
 
 
 def _tile_parts(runs, chunk):
-    """`(weight, parts)` of an output tile's source runs."""
-    w = sum(k * (b - a) for k, (a, b) in zip(SPLIT_WEIGHTS, runs))
+    """`(rows, parts)` of an output tile's source runs: every source row
+    counts alike (`splat_plan_kernel`)."""
+    w = sum(b - a for a, b in runs)
     return w, (-(-w // chunk) if w > chunk else 1)
 
 
 def _part_rows(runs, j, parts):
     """`(lo, hi)`: the rows of part j of `parts`, as indices into the
-    source runs laid end to end, cut at equal weight (each row starts at
-    the weight of the rows before it; `weighted_row`)."""
+    source runs laid end to end, cut into equal counts (`tile_body`)."""
     w = _tile_parts(runs, 1)[0]
-
-    def at(x):
-        rows = done = 0
-        for i, (k, (a, b)) in enumerate(zip(SPLIT_WEIGHTS, runs)):
-            if i == len(runs) - 1 or x <= done + k * (b - a):
-                return rows + -(-(x - done) // k)
-            rows += b - a
-            done += k * (b - a)
-
-    return at(w * j // parts), at(w * (j + 1) // parts)
+    return w * j // parts, w * (j + 1) // parts
 
 
-def _tile_weights(starts, tiles_y, tiles_x):
-    """Weighted source rows of each output tile: `[tiles_y, tiles_x]`."""
+def _tile_rows(starts, tiles_y, tiles_x):
+    """Source rows of each output tile: `[tiles_y, tiles_x]`."""
     rows = torch.diff(starts).to(torch.int64)
     p = F.pad(rows.reshape(tiles_y, tiles_x), (1, 0, 1, 0))
-    w_diag, w_above, w_left, w_own = SPLIT_WEIGHTS
-    return (w_diag * p[:-1, :-1] + w_above * p[:-1, 1:]
-            + w_left * p[1:, :-1] + w_own * p[1:, 1:])
+    return p[:-1, :-1] + p[:-1, 1:] + p[1:, :-1] + p[1:, 1:]
 
 
 def _sample_fits(tile, gx, gy, scal, tiles_x):
@@ -181,23 +164,24 @@ def _tile_mirror(scal, keym_s, p1, vl, *, bits, chunk, **kw):
 
 
 def test_transcription_constants_are_the_kernels():
-    """The transcription's weights, the plan's word counts and the region
-    are `csrc/`'s, and the queue has room for every part they cut."""
+    """The transcription's part cut (every source row alike), the plan's
+    word counts and the region are `csrc/`'s, and the queue has room for
+    every part they cut."""
     src = (CSRC / "splat.cu").read_text()
-    m = re.search(r"W_DIAG = (\d+), W_ABOVE = (\d+), W_LEFT = (\d+), "
-                  r"W_OWN = (\d+);", src)
-    assert tuple(int(g) for g in m.groups()) == SPLIT_WEIGHTS
+    assert re.search(r"const int w = \(a1 - a0\) \+ \(b1 - b0\);", src)
+    assert re.search(r"const int lo = \(int\)\(w \* part / parts\);", src)
     assert re.search(rf"INFO = {tdraw.SPLAT_INFO};", src)
     assert re.search(rf"QUEUE_HEAD = {tdraw.SPLAT_QUEUE_HEAD};", src)
     common = (CSRC / "common.cuh").read_text()
     assert re.search(rf"REGION_H = {REGION_H};", common)
     assert re.search(rf"REGION_W = {REGION_W};", common)
-    total = sum(SPLIT_WEIGHTS)
-    for n in (2048, 1 << 20, 1 << 22, 1 << 24):
-        chunk = tdraw.split_chunk(n)
-        # A split tile of weight w has ceil(w / chunk) <= 2 w / chunk
-        # parts, and the weights of all tiles sum to `total` n.
-        assert tdraw.queue_cap(n, chunk) >= 2 * total * n / chunk
+    for n, grid in ((2048, GRID), (1 << 20, (1080, 1920)),
+                    (1 << 22, (1080, 1920)), (1 << 24, (2160, 3840))):
+        tiles_y, tiles_x = tdraw.splat_tiles(grid)
+        chunk = tdraw.split_chunk(n, tiles_y * tiles_x)
+        # A split tile of w source rows has ceil(w / chunk) <= 2 w / chunk
+        # parts, and each row is a source of 4 tiles.
+        assert tdraw.queue_cap(n, chunk) >= 2 * 4 * n / chunk
 
 
 def _inputs(case, n, rng):
@@ -402,7 +386,7 @@ def test_partition_matches_reference_rule(case, gather, exact_p0, n):
     starts = _tile_starts(keym_s, bits, tiles_y * tiles_x)
     assert starts.dtype == torch.int32
     assert starts[0] == 0 and starts[-1] == n
-    weights = _tile_weights(starts, tiles_y, tiles_x)
+    tile_rows = _tile_rows(starts, tiles_y, tiles_x)
     queued = 0
     for t in range(tiles_y * tiles_x):
         runs = _source_runs(starts, t, tiles_x)
@@ -416,16 +400,17 @@ def test_partition_matches_reference_rule(case, gather, exact_p0, n):
                                            (ty, tx - 1), (ty, tx))):
             assert ((tile[a:b] // tiles_x == sy)
                     & (tile[a:b] % tiles_x == sx)).all()
-        weight, parts = _tile_parts(runs, 512)
-        assert weights[ty, tx] == weight
+        count, parts = _tile_parts(runs, 64)
+        assert tile_rows[ty, tx] == count
         queued += parts if parts > 1 else 0
         # The parts cut the runs laid end to end into consecutive pieces
-        # of at most about the chunk's weight.
+        # of at most the chunk's rows.
         bounds = [_part_rows(runs, j, parts) for j in range(parts)]
         assert bounds[0][0] == 0 and bounds[-1][1] == rows.size
         assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
-        assert parts == 1 or weight > 512
-    assert queued <= tdraw.queue_cap(n, 512)
+        assert parts == 1 or count > 64
+        assert max(b - a for a, b in bounds) <= 64
+    assert queued <= tdraw.queue_cap(n, 64)
 
     strays = (live & ~fits).sum().item()
     dead = (vl.numpy() >> 30) == 0
@@ -446,7 +431,7 @@ def test_partition_matches_reference_rule(case, gather, exact_p0, n):
 def test_tile_mirror_sums_to_plain(case, gather, exact_p0, n):
     """The tile pass's deposits (each output tile adding the fitting
     samples of its source runs into its own texels, split into parts of
-    at most 1024 weighted rows) plus the stray pass's sum to `splat_plain`
+    at most 128 source rows) plus the stray pass's sum to `splat_plain`
     within 1e-6 of each channel's max; the stray pass adds only what the
     tile pass leaves."""
     scal, (keym_s, p1, vl, p0), bits = _sorted_case(case, gather, exact_p0,
@@ -458,7 +443,7 @@ def test_tile_mirror_sums_to_plain(case, gather, exact_p0, n):
     kw = dict(samples=SAMPLES, grid_hw=GRID,
               pscale=tdraw.pos_scale_for(GRID), p0=p0, rgba=rgba)
     tiles, strays = _tile_mirror(scal, keym_s, p1, vl, bits=bits,
-                                 chunk=1024, **kw)
+                                 chunk=128, **kw)
     want = tdraw.splat_plain(scal, p1, vl, **kw)
     # The wrapper on CPU tensors is the plain version.
     got = tdraw.splat(scal, keym_s, p1, vl, idx_bits=bits, **kw)
@@ -524,7 +509,7 @@ def test_view_only_tile_mirror_sums_to_plain(case, gather, exact_p0, n):
     kw = dict(samples=SAMPLES, grid_hw=GRID,
               pscale=tdraw.pos_scale_for(GRID), p0=p0)
     tiles, strays = _tile_mirror(scal, keym_s, p1, vl, bits=bits,
-                                 chunk=1024, flow_off=True, **kw)
+                                 chunk=128, flow_off=True, **kw)
     want = tdraw.splat_plain(scal, p1, vl, flow_off=True, **kw)
     assert want.shape[0] == tdraw.N_VIEW
     assert torch.equal(tdraw.splat(scal, keym_s, p1, vl, idx_bits=bits,
