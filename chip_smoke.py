@@ -85,10 +85,10 @@ Phases (each prints a line; any failure exits non-zero before the result):
      bokeh=(3.0, 40.0))` with the `noiseScale` modulation of
      `bench.py:358-365`, 2 warm frames and 3 timed runs of 10, the screen
      [4, 2160, 3840] and finite, beside phase 10's headless ms/frame;
-     then bokeh alone on the show frame's view in both stack forms (the
-     windowed boxes, the banded matmuls), each with its max |d| and p99.9
-     against the same bokeh in float64 on the card and its device ms; the
-     facade's form must be within 5e-3 max and 2e-3 p99.9;
+     then bokeh alone on the show frame's view (the blur stack's windowed
+     boxes), its max |d| and p99.9 against the same bokeh in float64 on
+     the card and its device ms; it must be within 5e-3 max and 2e-3
+     p99.9;
  14. the spawners and live targets, on the demo's wiring
      (`tendrils_tpu/app/demo.py:99-115, 271-332`): at config 5 on phase
      10's engine (gather mode 3) a `direct` target spawn from the
@@ -235,21 +235,21 @@ import time
 import numpy as np
 import torch
 
+# The card's memory rate, the spin kernels that open a trace
+# (`time_calls`) and the host's CUDA runtime calls that ask for a device
+# event (a kernel, a copy, a fill), by the names `torch.profiler` records
+# them under: the benchmark's, so that one change moves both.
+from benchmark.trace import HBM_BYTES_PER_S, PAD_LAUNCHES, RUNTIME_CALLS
+
 STEPS = 60
 DT = 1000.0 / 60.0
 IO_FRAMES = 20
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 REPS = 20  # back-to-back calls a kernel or a library call is timed over
 PLAIN_REPS = 1  # the same for a plain version: a plain splat's trace holds
 # many small launches, which the profiler is slow to read
 LIB_ROUNDS = 7  # alternating turns of a kernel against its library call
 PROFILE_TRIES = 3  # traces a timing takes before it gives up
-PAD_LAUNCHES = 64  # spin kernels that open a trace (`time_calls`)
-# The host's CUDA runtime calls that ask for a device event (a kernel, a
-# copy, a fill), by the names `torch.profiler` records them under.
-RUNTIME_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
-                 "cuMemcpy", "cuMemset")
 TRACES = collections.Counter()  # traces `time_calls` took, and retook
 # Kernel -> (source, the TPU kernel it replaces).
 KERNELS = {
@@ -352,8 +352,8 @@ CONFIG1_RESIDENT = {"pack": 1, "splat_view": K2, "resolve_view": 1,
 CONFIG1_CLASSIC = {"pack_p0_rgba": 1, "splat_p0_rgba_view": K2,
                    "resolve_view": 1, "logic_step": 1}
 SHOW_BOKEH = (3.0, 40.0)  # config 5's show frame (`bench.py:352-378`)
-# Bokeh in f32 against float64 at 2160x3840, the most |d| either stack form
-# may read: both read ~3e-7 on an H100; TF32 or bf16 (~1e-3 relative on
+# Bokeh in f32 against float64 at 2160x3840, the most |d| the blur stack
+# may read: it reads ~3e-7 on an H100; TF32 or bf16 (~1e-3 relative on
 # values near 1) would read two orders over.
 BOKEH_F32_MAX = 1e-5
 SEG = 10  # headless steps of a config-3 segment and a config-5 timed run
@@ -2207,8 +2207,8 @@ def logic_cases(eng):
     (`flow_off`)."""
     from tendrils_tpu_torch import engine as engine_mod
     sim, params = eng.sim, eng.params()
-    time_ = engine_mod._f32(eng.timer.time, "cuda")
-    dt = engine_mod._f32(DT, "cuda")
+    time_ = engine_mod.device_f32(eng.timer.time, "cuda")
+    dt = engine_mod.device_f32(DT, "cuda")
     forces = {} if sim.force is None else {"carried": (sim.force, params)}
     forces["gathered"] = (engine_mod._step_force(
         sim, params, time_, eng.config, eng._view_size), params)
@@ -2713,12 +2713,11 @@ def flow_off_contract(eng):
         eng.timer.time = t0
         for _ in range(4):
             eng.timer.tick()
+            x = eng._frame_inputs()
             eng.sim = tengine._frame(
-                eng.sim, eng.params(), tengine._f32(eng.timer.time, "cuda"),
-                tengine._f32(eng.timer.dt, "cuda"), eng.config,
-                eng._view_size, targets_live=False,
-                fast_resolve=tengine.fast_resolve_ok(eng.config, eng.state),
-                flow_off=flow_off, host_widths=tengine.host_widths(eng.state))
+                eng.sim, x.params, x.time, x.dt, eng.config, eng._view_size,
+                targets_live=False, fast_resolve=x.fast_resolve,
+                flow_off=flow_off, host_widths=x.host_widths)
         runs.append(eng.sim)
     a, b = runs
     if not torch.equal(by_id(a), by_id(b)):
@@ -2817,30 +2816,26 @@ def quantile(d, q):
     return flat[int(q * (flat.numel() - 1))].item()
 
 
-def bokeh_forms(view):
-    """Bokeh alone on `view` (4K) in both stack forms: each form's max |d|
-    and p99.9 against the same bokeh in float64 on the card, and its
-    device ms (5 calls). The facade's form, the windowed boxes, must stay
-    within the JAX module's cross-form bounds (max 5e-3, p99.9 2e-3), and
-    each form within BOKEH_F32_MAX, which a stack in TF32 or bf16 misses."""
+def bokeh_against_f64(view):
+    """Bokeh alone on `view` (4K) in the blur stack's one form, the
+    windowed boxes: `(max |d|, p99.9)` against the same bokeh in float64
+    on the card, and its device and call ms (5 calls). It must stay
+    within the JAX module's cross-form bounds (max 5e-3, p99.9 2e-3) and
+    within BOKEH_F32_MAX, which a stack in TF32 or bf16 misses."""
     from tendrils_tpu_torch.ops import post
-    h, w = view.shape[1:]
     ref = post.bokeh(view.double(), *SHOW_BOKEH)
-    mats = post.blur_stack_matrices((h, w), (2, 6, 16), device=view.device)
-    rows = {}
-    for form, m in (("boxes", None), ("matmul", mats)):
-        d = (post.bokeh(view, *SHOW_BOKEH, mats=m).double() - ref).abs()
-        ms, call_ms, _ = time_calls(
-            lambda m=m: post.bokeh(view, *SHOW_BOKEH, mats=m), reps=5)
-        rows[form] = (d.max().item(), quantile(d, 0.999), ms, call_ms)
-        del d
-        if rows[form][0] >= BOKEH_F32_MAX:
-            fail(f"bokeh ({form}) against float64: max |d| "
-                 f"{rows[form][0]:.3e}, over {BOKEH_F32_MAX:.0e}")
-    if rows["boxes"][0] >= 5e-3 or rows["boxes"][1] >= 2e-3:
-        fail(f"bokeh (boxes) against float64: max |d| {rows['boxes'][0]:.3e}"
-             f", p99.9 {rows['boxes'][1]:.3e}")
-    return rows
+    d = (post.bokeh(view, *SHOW_BOKEH).double() - ref).abs()
+    mx, p999 = d.max().item(), quantile(d, 0.999)
+    del d
+    ms, call_ms, _ = time_calls(lambda: post.bokeh(view, *SHOW_BOKEH),
+                                reps=5)
+    if mx >= BOKEH_F32_MAX:
+        fail(f"bokeh (boxes) against float64: max |d| {mx:.3e}, over "
+             f"{BOKEH_F32_MAX:.0e}")
+    if mx >= 5e-3 or p999 >= 2e-3:
+        fail(f"bokeh (boxes) against float64: max |d| {mx:.3e}, p99.9 "
+             f"{p999:.3e}")
+    return mx, p999, ms, call_ms
 
 
 def show_frame(eng, i):
@@ -2854,7 +2849,7 @@ def show_frame(eng, i):
 def run_show_frame(eng, headless_ms):
     """Phase 13: config 5's show frame uncut on phase 10's engine (merge
     off): 2 warm frames and 3 timed runs of SEG, the screen `[4, 2160,
-    3840]` and finite; then bokeh alone in both stack forms."""
+    3840]` and finite; then bokeh alone (`bokeh_against_f64`)."""
     from tendrils_tpu_torch.ops import cuda_lib
     with_merge(eng, False)
     cuda_lib.reset_counts()
@@ -2879,7 +2874,7 @@ def run_show_frame(eng, headless_ms):
         fail(f"show frame: screen {tuple(screen.shape)}, finite "
              f"{torch.isfinite(screen).all().item()}")
     alive, texels = check_state(eng.sim, "16m-live-show show frame")
-    rows = bokeh_forms(eng.sim.view[0].contiguous())
+    mx, p999, ms, call_ms = bokeh_against_f64(eng.sim.view[0].contiguous())
     sec = statistics.median(times)
     print(f"[13] 16m-live-show show frame, step_draw_io(bokeh={SHOW_BOKEH}) "
           f"every frame: {2 + 3 * SEG} frames, launches {launches}, no plain "
@@ -2887,11 +2882,9 @@ def run_show_frame(eng, headless_ms):
           f"{texels} flow texels; {sec * 1e3:.3f} ms/frame (3 x {SEG}: "
           f"{', '.join(f'{t * 1e3:.3f}' for t in times)}) against "
           f"{headless_ms:.3f} headless (phase 10, merge off)")
-    for form, (mx, p999, ms, call_ms) in rows.items():
-        print(f"  bokeh alone at {h}x{w}, {form}"
-              f"{' (the facade form)' if form == 'boxes' else ''}: against "
-              f"float64 max |d| {mx:.3e}, p99.9 {p999:.3e}; device "
-              f"{ms:.4f} ms, call {call_ms:.4f} ms")
+    print(f"  bokeh alone at {h}x{w}, boxes: against float64 max |d| "
+          f"{mx:.3e}, p99.9 {p999:.3e}; device {ms:.4f} ms, call "
+          f"{call_ms:.4f} ms")
     return launches
 
 
@@ -3411,7 +3404,7 @@ def run_demo_resume(tmp):
     eng = fresh.tendrils
     regathered = tengine.initial_force(
         eng.sim, eng.params(), eng.config, eng._view_size,
-        tengine._f32(eng.timer.time + DT, eng.device))
+        tengine.device_f32(eng.timer.time + DT, eng.device))
     order1 = torch.argsort(eng.sim.idx)
     d_force = (carried[:, order0] - regathered[:, order1]).abs().max().item()
     for _ in range(3):
@@ -3708,8 +3701,9 @@ def agree_backends(eng):
     and the largest |value| it is read against."""
     from tendrils_tpu_torch import engine as te
     params = eng.params()
-    t = te._f32(eng.timer.time + DT, "cuda")
-    sim = te.step_sim(eng.sim, params, t, te._f32(DT, "cuda"), eng.config,
+    t = te.device_f32(eng.timer.time + DT, "cuda")
+    sim = te.step_sim(eng.sim, params, t, te.device_f32(DT, "cuda"),
+                      eng.config,
                       eng._view_size)
     outs = [te.draw_sim(sim, params, t, dataclasses.replace(
         eng.config, splat_backend=b), eng._view_size) for b in ("kernel",
@@ -3754,7 +3748,7 @@ def fused_against_generic(strict, **size):
     base = generic_engine(**size)
     base.state.update(flowWidth=1.0, lineWidth=1.0)
     state, params = convert.sim_to_numpy(base.sim), base.params()
-    t = te._f32(16.0, "cuda")
+    t = te.device_f32(16.0, "cuda")
     outs = {}
     for name, backend, fused in (("fused", "kernel", True),
                                  ("generic K9", "kernel", False),
@@ -4070,11 +4064,11 @@ def xla_tail_frame(eng):
     (`_widen_excess`, `composite_over`)."""
     from tendrils_tpu_torch import engine
     eng.timer.tick()
+    x = eng._frame_inputs()
     eng.sim = engine._frame(
-        eng.sim, eng.params(), engine._f32(eng.timer.time, eng.device),
-        engine._f32(eng.timer.dt, eng.device), eng.config, eng._view_size,
-        targets_live=eng._targets_live, fast_resolve=False,
-        host_widths=engine.host_widths(eng.state))
+        eng.sim, x.params, x.time, x.dt, eng.config, eng._view_size,
+        targets_live=x.targets_live, fast_resolve=False,
+        host_widths=x.host_widths)
 
 
 class Mode3:

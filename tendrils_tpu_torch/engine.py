@@ -37,14 +37,18 @@ next force is gathered at the sorted p1 (K7, packed q15) and un-sorted by
 row id (`force_from_aux`). A textured colour map sends the rgba8 stream
 on the resident frame too.
 
-The interactive frame (`Tendrils.step_draw_io`, `_frame_io`) blends its
-colour maps before the step and edits the flow after the draw — pointer
-flow lines (`_inject_flow`, the point splat on the config's splat
-backend) and the camera's optical flow (`ops.optical_flow`) — so its
-draw only reassembles the state (K6), and the next force is gathered
-afterwards from the final flow (`force_from_aux`, K8 or K7). Its post
-stage (`ops/post.py`: the vignette blur, then the bokeh) returns the
-screen.
+One function assembles a frame, `_frame`: the headless frame
+(`Tendrils.frame`, `run_headless`, `parallel.sharding`) and the
+interactive one (`Tendrils.step_draw_io`) are the same call, the
+second with inputs. It blends the colour maps before the step and
+edits the flow after the draw — pointer flow lines (`_inject_flow`, the
+point splat on the config's splat backend) and the camera's optical
+flow (`ops.optical_flow`) — so a frame with edits only reassembles the
+state in its draw (K6), and the next force is gathered afterwards from
+the final flow (`force_from_aux`, K8 or K7). `_frame_io` is that frame
+followed by the post stage (`ops/post.py`: the vignette blur, then the
+bokeh), which returns the screen. The facade reads a frame's inputs
+once (`Tendrils._frame_inputs`).
 
 With `flowWeight == 0` (`flow_force_unused`, BASELINE config 1) the flow
 term of the step is exactly zero: the step gathers nothing, no frame
@@ -64,7 +68,7 @@ frame's grids. PyTorch runs eagerly, so there is no jit and no scan:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -74,7 +78,7 @@ from .const import INERT
 from .ops import coords, flow as flow_ops, logic_cuda
 from .ops import optical_flow as of_ops, post as post_ops, render, sample
 from .ops import spawn as spawn_ops, splat as splat_ops
-from .ops.draw_cuda import (KMAX_WIDTH, fused_draw, gather_mode,
+from .ops.draw_cuda import (KMAX_WIDTH, device_f32, fused_draw, gather_mode,
                             pos_scale_for, reconstruct_resident,
                             seg_tile_count)
 from .ops.gather_cuda import (bilinear_gather, bilinear_gather_keyed_p1,
@@ -187,15 +191,12 @@ def host_widths(src) -> tuple[float, float]:
     return float(src.get("flowWidth", 1.0)), float(src.get("lineWidth", 1.0))
 
 
-def fast_resolve_ok(cfg: EngineConfig, src=None) -> bool:
+def fast_resolve_ok(cfg: EngineConfig, widths) -> bool:
     """Whether the fused resolve (K3) applies: the fused kernel draw and
-    host-known line widths within the in-kernel budget. `src`: the
-    engine's state dict or a params dict (see `host_widths`). The CUDA
-    resolve takes any grid shape, so the TPU alignment test has no
-    counterpart."""
-    if not fused_draw_ok(cfg) or src is None:
-        return False
-    return max(*host_widths(src), 1.0) <= KMAX_WIDTH
+    host-known line widths, the `(flowWidth, lineWidth)` pair of
+    `host_widths`, within the in-kernel budget. The CUDA resolve takes
+    any grid shape, so the TPU alignment test has no counterpart."""
+    return fused_draw_ok(cfg) and max(*widths, 1.0) <= KMAX_WIDTH
 
 
 def flow_force_unused(src) -> bool:
@@ -203,6 +204,17 @@ def flow_force_unused(src) -> bool:
     if src is None:
         return False
     return float(src.get("flowWeight", 1.0)) == 0.0
+
+
+def with_view0(views, view0):
+    """The view ring `views` `f32[B, 4, H, W]` with `view0` as its head
+    buffer: `view0[None]`, a view and no copy, with one buffer (the
+    default); else `view0` before the other buffers. No path writes into
+    a view tensor in place (K3, `composite_over` and `fade_fill` return
+    fresh ones), so an older `SimState` may share it."""
+    if views.shape[0] == 1:
+        return view0[None]
+    return torch.cat([view0[None], views[1:]])
 
 
 def _decayed(flow, time, params):
@@ -311,9 +323,9 @@ def step_sim(sim: state_mod.SimState, params, time, dt, cfg: EngineConfig,
 
 def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
              view_size, axis_name=None, want_aux=False, resident=False,
-             targets_live=True, stepped=False, fast_resolve=False,
-             read_time=None, want_eff=False, want_force=False,
-             flow_off=False, host_widths=None):
+             targets_live=True, fast_resolve=False, read_time=None,
+             want_eff=False, want_force=False, flow_off=False,
+             host_widths=None):
     """Flow + view render passes — ref `src/index.js:278-340`: the fused
     draw where it applies (`fused_draw`, the "kernel" splat, one grid
     shape), else the generic draw (`_draw_generic`), which takes none of
@@ -437,7 +449,7 @@ def draw_sim(sim: state_mod.SimState, params, time, cfg: EngineConfig,
             host_widths=host_widths, psum=axis_name, adds_rows=cfg.n)
         carry = rest.pop() if reorder is not None else None
         eff = rest[0] if rest else None
-        view = torch.cat([view0[None], sim.view[1:]])
+        view = with_view0(sim.view, view0)
         if not resident:
             new_sim = dataclasses.replace(sim, flow=new_flow, view=view)
             if not want_aux:
@@ -527,8 +539,8 @@ def _draw_generic(sim, params, time, cfg, view_size, psum=None):
     view0 = render.fade_fill(sim.view[0] * (1.0 - params["autoClearView"]),
                              params["fadeColor"] * params["autoFade"])
     view0 = splat_ops.composite_over(view0, *view_parts)
-    return dataclasses.replace(
-        sim, flow=new_flow, view=torch.cat([view0[None], sim.view[1:]]))
+    return dataclasses.replace(sim, flow=new_flow,
+                               view=with_view0(sim.view, view0))
 
 
 def _draw(sim, params, time, dt, cfg, view_size, flow_off=False,
@@ -547,42 +559,6 @@ def _draw(sim, params, time, dt, cfg, view_size, flow_off=False,
                         host_widths=host_widths)
     return dataclasses.replace(sim, force=force_from_aux(
         sim.flow, aux, params, time + dt, cfg))
-
-
-def _frame(sim, params, time, dt, cfg, view_size, targets_live=True,
-           fast_resolve=False, flow_off=False, host_widths=None,
-           axis_name=None):
-    """One frame: step + draw, the next force carried on `sim`: gathered
-    in the resident draw (K4), or by `force_from_aux` after a classic draw
-    (K7 from K3's decayed flow). Without the carried force the step
-    gathers its own (K5) and the draw gathers none. With `flow_off` no
-    force is gathered at all: the resident draw rebuilds the state alone
-    (K6), the classic one is a plain draw (no ids, no K7). `axis_name`:
-    the draw's (a shard's frame, `parallel.sharding.parallel_frame`); the
-    step and the force gathers run on this rank's rows, the gathers from
-    the whole flow every rank holds."""
-    sim = step_sim(sim, params, time, dt, cfg, view_size, flow_off=flow_off)
-    if not carry_enabled(cfg):
-        return draw_sim(sim, params, time, cfg, view_size, stepped=True,
-                        fast_resolve=fast_resolve, flow_off=flow_off,
-                        host_widths=host_widths, axis_name=axis_name)
-    resident = resident_enabled(cfg)
-    if flow_off and not resident:
-        # Nothing consumes the flow force: no aux stream, no gather.
-        return draw_sim(sim, params, time, cfg, view_size, stepped=True,
-                        fast_resolve=fast_resolve, flow_off=True,
-                        host_widths=host_widths, axis_name=axis_name)
-    out = draw_sim(sim, params, time, cfg, view_size, want_aux=True,
-                   resident=resident, targets_live=targets_live,
-                   stepped=True, fast_resolve=fast_resolve,
-                   read_time=time + dt, want_eff=fast_resolve and not flow_off,
-                   want_force=resident and not flow_off, flow_off=flow_off,
-                   host_widths=host_widths, axis_name=axis_name)
-    if resident:
-        return out[0]
-    sim, aux, *eff = out
-    return dataclasses.replace(sim, force=force_from_aux(
-        sim.flow, aux, params, time + dt, cfg, eff=eff[0] if eff else None))
 
 
 def _inject_flow(flow, p0_pix, p1_pix, vel, width, params, time, cfg,
@@ -612,32 +588,43 @@ def _resize_payload(grid, hw):
                          align_corners=False, antialias=shrinks)[0]
 
 
-def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
-              blur, bokeh=None, stepping=True, targets_live=True,
-              fast_resolve=False, flow_off=False, host_widths=None):
-    """The interactive frame (the JAX `_frame_io_jit`): [colour-map blend],
-    step + draw, then [pointer flow lines] and [optical-flow composite],
-    then the next force gathered from the FINAL flow at `time + dt` (the
+def _frame(sim, params, time, dt, cfg, view_size, *, cm=None, cm_alphas=None,
+           seg=None, of=None, stepping=True, targets_live=True,
+           fast_resolve=False, flow_off=False, host_widths=None,
+           axis_name=None):
+    """One frame, the one orchestration of every entry (the JAX
+    `_frame_jit` and `_frame_io_jit`): [colour-map blend], step + draw,
+    then [pointer flow lines] and [optical-flow composite], then the next
+    force, carried on `sim'`, from the FINAL flow at `time + dt` (the
     reference's logic pass sees the flow lines and optical flow written
     this frame, `demo.main.js:1107-1160`): K8 on the resident stream, K7
     and the un-sort on the classic one. Without either input the resident
     draw gathers the force itself (K4), and a classic draw hands K3's
-    decayed flow to K7, exactly as the JAX function fuses them.
-    `stepping=False` (the paused timer) skips only the step: a plain draw
-    (gather mode 0, the XLA tail) and every input still land, and no force
-    is carried.
+    decayed flow to K7, as the JAX functions fuse them. Without the
+    carried force the step gathers its own (K5) and the draw gathers
+    none. `stepping=False` (the paused timer) skips only the step: a
+    plain draw (gather mode 0, the XLA tail) and every input still land,
+    and no force is carried.
 
-    `flow_off` (`flowWeight == 0`): no force is gathered; the draw prunes
-    the flow channels only when neither input edits the flow.
+    A force the frame will not use (no carried force, the paused timer,
+    `flow_off`) is dropped on entry. On every state the engine reaches
+    the headless frame's result is unchanged by it: `run_headless` strips
+    such a force, `draw()` and the spawns set or clear it, and a
+    `flow_off` step discards it.
+
+    `flow_off` (`flowWeight == 0`): no force is gathered; the resident
+    draw rebuilds the state alone (K6), the classic one is a plain draw
+    (no ids, no K7); the draw prunes the flow channels only when neither
+    input edits the flow.
 
     `cm`: colour-map tensors `f32[4, h, w]`, resized to the largest and
     blended with `cm_alphas` (`post.blend`, ref `demo.main.js:1070-1079`);
     `seg`: `(p0_pix, p1_pix, vel, width)` tensors; `of`: `(current, last,
     offset, lambda, speed)`, frames as device tensors, the uniforms host
-    numbers; `blur`: `(radius, limit)` and `bokeh`: `(radius, amount)`,
-    the post stage's vignette blur and bokeh (bokeh after the blur when
-    both are set; the blur stack runs its windowed boxes). Returns
-    `(sim', screen)`, the screen None without a post stage."""
+    numbers. `axis_name`: the draw's (a shard's frame,
+    `parallel.sharding.parallel_frame`); the step and the force gathers
+    run on this rank's rows, the gathers from the whole flow every rank
+    holds. Returns `sim'`."""
     carry = carry_enabled(cfg) and stepping and not flow_off
     if not carry and sim.force is not None:
         sim = dataclasses.replace(sim, force=None)
@@ -651,7 +638,7 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
     aux = eff = None
     if not stepping:
         sim = draw_sim(sim, params, time, cfg, view_size,
-                       host_widths=host_widths)
+                       host_widths=host_widths, axis_name=axis_name)
     else:
         sim = step_sim(sim, params, time, dt, cfg, view_size,
                        flow_off=flow_off)
@@ -660,19 +647,19 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
             # the draw's sort, so the rows stay tile-ordered.)
             sim, aux, *eff = draw_sim(
                 sim, params, time, cfg, view_size, want_aux=True,
-                resident=resident, targets_live=targets_live, stepped=True,
+                resident=resident, targets_live=targets_live,
                 fast_resolve=fast_resolve, read_time=time + dt,
                 want_eff=fast_resolve and not edits and not flow_off,
                 want_force=want_force, flow_off=flow_off and not edits,
-                host_widths=host_widths)
+                host_widths=host_widths, axis_name=axis_name)
             eff = eff[0] if eff else None
             if want_force or flow_off:
                 aux = None  # the draw set sim.force (K4), or none is read
         else:
-            sim = draw_sim(sim, params, time, cfg, view_size, stepped=True,
+            sim = draw_sim(sim, params, time, cfg, view_size,
                            fast_resolve=fast_resolve,
                            flow_off=flow_off and not edits,
-                           host_widths=host_widths)
+                           host_widths=host_widths, axis_name=axis_name)
     if seg is not None:
         p0, p1, vel, width = seg
         sim = dataclasses.replace(
@@ -690,22 +677,26 @@ def _frame_io(sim, params, time, dt, cfg, view_size, cm, cm_alphas, seg, of,
         sim = dataclasses.replace(sim, force=force_from_aux(
             sim.flow, aux, params, time + dt, cfg, unsort=not resident,
             eff=eff))
-    screen = None
-    if blur is not None or bokeh is not None:
-        with span("post"):
-            if blur is not None:
-                screen = post_ops.vignette_blur(sim.view[0], *blur)
-            if bokeh is not None:
-                screen = post_ops.bokeh(
-                    sim.view[0] if screen is None else screen, *bokeh)
+    return sim
+
+
+def _frame_io(sim, params, time, dt, cfg, view_size, *, blur=None,
+              bokeh=None, **frame):
+    """`_frame` (its keywords in `frame`), then the post stage on the new
+    view: `blur` `(radius, limit)` the vignette blur and `bokeh`
+    `(radius, amount)` the bokeh, after the blur when both are set (the
+    blur stack's windowed boxes). Returns `(sim', screen)`, the screen
+    None without a post stage."""
+    sim = _frame(sim, params, time, dt, cfg, view_size, **frame)
+    if blur is None and bokeh is None:
+        return sim, None
+    with span("post"):
+        screen = sim.view[0]
+        if blur is not None:
+            screen = post_ops.vignette_blur(screen, *blur)
+        if bokeh is not None:
+            screen = post_ops.bokeh(screen, *bokeh)
     return sim, screen
-
-
-def _f32(v, device):
-    """A 0-d f32 tensor on `device` (a device fill for host numbers)."""
-    if isinstance(v, torch.Tensor):
-        return v.to(device=device, dtype=torch.float32)
-    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
@@ -717,7 +708,7 @@ def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
     seeded when the merge is enabled and stripped when it is not. Returns
     the final state."""
     device = sim.particles.device
-    t0, dt = _f32(t0, device), _f32(dt, device)
+    t0, dt = device_f32(t0, device), device_f32(dt, device)
     carry = carry_enabled(cfg) and not flow_off
     if carry and sim.force is None:
         sim = dataclasses.replace(
@@ -729,15 +720,34 @@ def run_headless(sim, params, cfg: EngineConfig, view_size, t0, dt, steps,
         sim = seed_sort_carry(sim, cfg)
     elif not merge and sim.sort_key is not None:
         sim = dataclasses.replace(sim, sort_key=None, sort_hist=None)
-    if fast_resolve is None:
-        fast_resolve = fast_resolve_ok(cfg, params)
     widths = host_widths(params)
+    if fast_resolve is None:
+        fast_resolve = fast_resolve_ok(cfg, widths)
     for i in range(steps):
         sim = _frame(sim, params, t0 + dt * float(i + 1), dt, cfg,
                      view_size, targets_live=targets_live,
                      fast_resolve=fast_resolve, flow_off=flow_off,
                      host_widths=widths)
     return sim
+
+
+class FrameInputs(NamedTuple):
+    """A frame's inputs, read once (`Tendrils._frame_inputs`): the
+    parameters as device tensors, `time` and `dt` as device scalars, and
+    the host-known switches of `_frame`."""
+    params: dict
+    time: torch.Tensor
+    dt: torch.Tensor
+    flow_off: bool
+    fast_resolve: bool
+    host_widths: tuple[float, float]
+    targets_live: bool
+
+    def switches(self):
+        """`_frame`'s keywords from the host state."""
+        return dict(targets_live=self.targets_live,
+                    fast_resolve=self.fast_resolve, flow_off=self.flow_off,
+                    host_widths=self.host_widths)
 
 
 # --- Stateful engine --------------------------------------------------------
@@ -876,35 +886,49 @@ class Tendrils:
                 val = 1.0 if on else 0.0
                 ent = cache.get(k)
                 if ent is None or ent[0] != val:
-                    ent = (val, _f32(val, self.device))
+                    ent = (val, device_f32(val, self.device))
                     cache[k] = ent
                 out[k] = ent[1]
             return out
 
     # -- per-frame API
 
+    def _frame_inputs(self) -> FrameInputs:
+        """A frame's inputs, read once by every frame entry (here and in
+        `parallel/`): the device parameters (`params()`), the timer's
+        `time` and `dt` as device fills, and from the host state
+        `flow_force_unused`, `fast_resolve_ok`, `host_widths` and whether
+        the targets are live. The entries that step first drop a carried
+        force whose params changed (`_check_force_params`), paused or
+        not; `draw()` does not, as the JAX facade's, and a paused entry
+        reads no inputs for the step it skips."""
+        widths = host_widths(self.state)
+        return FrameInputs(
+            self.params(), device_f32(self.timer.time, self.device),
+            device_f32(self.timer.dt, self.device),
+            flow_force_unused(self.state),
+            fast_resolve_ok(self.config, widths), widths,
+            self._targets_live)
+
     def step(self):
         """Ref `src/index.js:248-272` (honours timer pause)."""
         with span("frame"):
             self._check_force_params()
             if not self.timer.paused:
-                self.sim = step_sim(self.sim, self.params(),
-                                    _f32(self.timer.time, self.device),
-                                    _f32(self.timer.dt, self.device),
+                x = self._frame_inputs()
+                self.sim = step_sim(self.sim, x.params, x.time, x.dt,
                                     self.config, self._view_size,
-                                    flow_off=flow_force_unused(self.state))
+                                    flow_off=x.flow_off)
         return self
 
     def draw(self):
         """Ref `src/index.js:278-340`: a draw with no step before it
         (`_draw`), the next force gathered after it."""
         with span("frame"):
-            self.sim = _draw(self.sim, self.params(),
-                             _f32(self.timer.time, self.device),
-                             _f32(self.timer.dt, self.device), self.config,
-                             self._view_size,
-                             flow_off=flow_force_unused(self.state),
-                             host_widths=host_widths(self.state))
+            x = self._frame_inputs()
+            self.sim = _draw(self.sim, x.params, x.time, x.dt, self.config,
+                             self._view_size, flow_off=x.flow_off,
+                             host_widths=x.host_widths)
         return self
 
     def step_draw(self):
@@ -914,15 +938,9 @@ class Tendrils:
         if self.timer.paused:
             return self.draw()
         with span("frame"):
-            self.sim = _frame(self.sim, self.params(),
-                              _f32(self.timer.time, self.device),
-                              _f32(self.timer.dt, self.device), self.config,
-                              self._view_size,
-                              targets_live=self._targets_live,
-                              fast_resolve=fast_resolve_ok(self.config,
-                                                           self.state),
-                              flow_off=flow_force_unused(self.state),
-                              host_widths=host_widths(self.state))
+            x = self._frame_inputs()
+            self.sim = _frame(self.sim, x.params, x.time, x.dt, self.config,
+                              self._view_size, **x.switches())
         return self
 
     def frame(self):
@@ -988,8 +1006,8 @@ class Tendrils:
             return self
         new_flow = _inject_flow(
             self.sim.flow, *self._segment_tensors(p0_pix, p1_pix, vel),
-            _f32(max(width_px, 1.0), self.device), self.params(),
-            _f32(self.timer.time, self.device), self.config,
+            device_f32(max(width_px, 1.0), self.device), self.params(),
+            device_f32(self.timer.time, self.device), self.config,
             samples=samples)
         self.sim = dataclasses.replace(self.sim, flow=new_flow, force=None)
         return self
@@ -1016,6 +1034,7 @@ class Tendrils:
         or None without a post stage."""
         with span("frame"):
             self._check_force_params()
+            x = self._frame_inputs()
             cm = None
             if color_maps is not None:
                 cm = tuple(torch.as_tensor(g, dtype=torch.float32,
@@ -1032,7 +1051,7 @@ class Tendrils:
             seg = None
             if segments is not None and len(segments[0]):
                 seg = (*self._segment_tensors(*segments[:3]),
-                       _f32(max(segments[3], 1.0), self.device))
+                       device_f32(max(segments[3], 1.0), self.device))
             of = None
             if of_frames is not None:
                 u = dict({"offset": 1.0, "lambda": 0.001, "speed": 1.0},
@@ -1046,14 +1065,10 @@ class Tendrils:
             bokeh_t = (None if bokeh is None
                        else tuple(float(v) for v in bokeh))
             self.sim, screen = _frame_io(
-                self.sim, self.params(), _f32(self.timer.time, self.device),
-                _f32(self.timer.dt, self.device), self.config,
-                self._view_size, cm, color_alphas, seg, of, blur_t, bokeh_t,
-                stepping=not self.timer.paused,
-                targets_live=self._targets_live,
-                fast_resolve=fast_resolve_ok(self.config, self.state),
-                flow_off=flow_force_unused(self.state),
-                host_widths=host_widths(self.state))
+                self.sim, x.params, x.time, x.dt, self.config,
+                self._view_size, cm=cm, cm_alphas=color_alphas, seg=seg,
+                of=of, blur=blur_t, bokeh=bokeh_t,
+                stepping=not self.timer.paused, **x.switches())
         return screen
 
     def composite_flow(self, payload_grid):
@@ -1088,7 +1103,7 @@ class Tendrils:
         p = self.params()
         view0 = render.fade_fill(self.sim.view[0], p["fadeColor"])
         self.sim = dataclasses.replace(
-            self.sim, view=torch.cat([view0[None], self.sim.view[1:]]))
+            self.sim, view=with_view0(self.sim.view, view0))
         return self
 
     def copy_buffer(self, index=0):

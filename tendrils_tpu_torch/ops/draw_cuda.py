@@ -69,6 +69,8 @@ in int64 fixed point (the TPU's matmul operands are bf16) with shared and
 global integer atomics, so it is the same on every run.
 """
 
+import numbers
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -118,13 +120,13 @@ def pos_scale_for(grid_hw):
     return _pos_scale(*pad_dims(*grid_hw))
 
 
-def _vec(v, device):
-    """`v` as a flat f32 tensor on `device`. Numbers become device fills,
-    never host-to-device copies, so building the scalars does not wait
-    for the device."""
-    if isinstance(v, (int, float)):
-        return torch.full((1,), float(v), dtype=_F32, device=device)
-    return torch.as_tensor(v, dtype=_F32, device=device).reshape(-1)
+def device_f32(v, device):
+    """`v` as an f32 tensor on `device`. A host number becomes a 0-d
+    device fill, never a host-to-device copy, so building the frame's
+    operands does not wait for the device; a tensor is cast and moved."""
+    if isinstance(v, numbers.Real):
+        return torch.full((), float(v), dtype=_F32, device=device)
+    return torch.as_tensor(v, dtype=_F32, device=device)
 
 
 def seg_tile_count(grid_hw):
@@ -722,7 +724,7 @@ def _draw_scal(speed_limit, time, flow_width, line_width, speed_alpha,
     """The per-frame scalars as one `f32[32]` device tensor, in the JAX
     `scal` layout (draw_pallas.py:1188-1202): no launch reads a device
     value back to the host."""
-    return torch.cat([_vec(v, device) for v in (
+    return torch.cat([device_f32(v, device).reshape(-1) for v in (
         speed_limit, time, flow_width, line_width, speed_alpha, sin_decay,
         flow_decay, base_color, flow_color, 0.0, mapped_scalar,
         torch.zeros(10, device=device), view_size)])
@@ -980,10 +982,10 @@ def _resolve_scal(fade_rgba, auto_clear, time, read_time, flow_decay,
     """The resolve's scalars as one `f32[16]` device tensor (JAX layout,
     draw_pallas.py:1428-1434)."""
     def scale_of(width):
-        width = torch.clamp(_vec(width, device), min=1.0)
+        width = torch.clamp(device_f32(width, device).reshape(-1), min=1.0)
         return width / torch.clamp(width, max=KMAX_WIDTH)
 
-    return torch.cat([_vec(v, device) for v in (
+    return torch.cat([device_f32(v, device).reshape(-1) for v in (
         time, read_time, flow_decay, auto_clear, fade_rgba,
         scale_of(flow_width), scale_of(line_width), 1e-6,
         torch.zeros(5, device=device))])

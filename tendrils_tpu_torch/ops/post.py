@@ -15,15 +15,17 @@ Mirrors `tendrils_tpu/ops/post.py`, the reference's screen-space passes
     weighted disc blur, computed as blur(col·w) / blur(w) over the same
     stack.
 
-The stack's levels are linear operators. `blur_stack` runs them in one of
-two forms, the JAX module's two: banded matrices (`blur_stack_matrices`,
-two matmuls a level) or the sequential boxes. The port sums each box's
-window (`F.avg_pool2d` over an edge-replicated pad) where the JAX module
-takes differences of a running sum: bokeh's weights reach ~1e5 at
-`bokeh=(3, 40)`, so a running sum along a 3840-wide row reaches ~1e8,
-whose f32 step would land on every box. No Pallas kernel stands behind
-this module. The facade runs the windowed boxes: on an H100 they were
-faster at 2160 x 3840 and as close to a float64 bokeh (`PERF.md` §6).
+The stack's levels are linear operators, run as the sequential boxes.
+The JAX module also runs them as banded matrices (`blur_stack_matrices`,
+two matmuls a level, for the TPU's matrix unit); the port keeps the
+boxes alone: for a bokeh at 2160 x 3840 an H100 took 17.07 ms on them
+and 41.43 ms on the matmuls, which came no closer to a float64 bokeh
+(tests/test_torch_post.py holds the boxes to both JAX forms). The port
+sums each box's window (`F.avg_pool2d` over an edge-replicated pad) where
+the JAX module takes differences of a running sum: bokeh's weights reach
+~1e5 at `bokeh=(3, 40)`, so a running sum along a 3840-wide row reaches
+~1e8, whose f32 step would land on every box. No Pallas kernel stands
+behind this module.
 
 Radii are static; strengths are host numbers or tensors. Every function
 computes in the dtype of its image (f32, or f64 for a reference).
@@ -90,102 +92,10 @@ def box_blur(img, r):
     return _box_blur_axis(_box_blur_axis(img, r, 1), r, 2)
 
 
-# --- the stack's banded matrices (numpy, offline) ---------------------------
-
-
-def _band_box(n, r):
-    """Edge-replicated box blur as a banded matrix.
-
-    Band layout: `band[d + r, i] = M[i, i + d]` (zero where out of range);
-    `out[i] = sum_d band[d + r, i] * x[i + d]`.
-    """
-    band = np.zeros((2 * r + 1, n), np.float64)
-    inv = 1.0 / (2 * r + 1)
-    idx = np.arange(n)
-    for d in range(-r, r + 1):
-        valid = (idx + d >= 0) & (idx + d < n)
-        band[d + r, valid] += inv
-    for i in range(min(r, n)):
-        # Rows near the top: taps d < -i clamp to column 0 (offset -i).
-        band[-i + r, i] += (r - i) * inv
-        # Mirror rows near the bottom clamp to column n-1 (offset +i).
-        band[i + r, n - 1 - i] += (r - i) * inv
-    return band, r
-
-
-def _band_mul(a, ra, b, rb, n):
-    """Banded product C = A @ B (C[i,j] = sum_k A[i,k] B[k,j])."""
-    rc = ra + rb
-    c = np.zeros((2 * rc + 1, n), np.float64)
-    i = np.arange(n)
-    for e in range(-ra, ra + 1):
-        ae = a[e + ra]
-        for f in range(-rb, rb + 1):
-            d = e + f
-            k = i + e
-            valid = (k >= 0) & (k < n) & (i + d >= 0) & (i + d < n)
-            c[d + rc, valid] += ae[valid] * b[f + rb, k[valid]]
-    return c, rc
-
-
-def _band_dense(band, r, n):
-    m = np.zeros((n, n), np.float32)
-    i = np.arange(n)
-    for d in range(-r, r + 1):
-        valid = (i + d >= 0) & (i + d < n)
-        m[i[valid], (i + d)[valid]] = band[d + r, valid]
-    return m
-
-
-@functools.lru_cache(maxsize=8)
-def _axis_matrices_np(n, radii):
-    """Per-level cumulative blur matrices along one axis, `[(n, n)] * L`.
-
-    Row i of M_l holds the level-l kernel for output index i — exactly the
-    product of the sequential clamped box matrices `blur_stack` applies.
-    """
-    mats = []
-    cur, rc = None, 0
-    prev = 0
-    for r in radii:
-        rr = max(1, (r - prev) // 2 + 1)
-        b, rb = _band_box(n, rr)
-        step, rs = _band_mul(b, rb, b, rb, n)
-        if cur is None:
-            cur, rc = step, rs
-        else:
-            cur, rc = _band_mul(step, rs, cur, rc, n)
-        mats.append(_band_dense(cur, rc, n))
-        prev = r
-    return mats
-
-
-def blur_stack_matrices(shape_hw, radii=(2, 6, 16), device=None,
-                        dtype=torch.float32):
-    """The operator pair for `blur_stack(..., mats=...)`: `(A, Bt)`, `A[l]`
-    `[H, H]` (left multiply), `Bt[l]` `[W, W]` already transposed for the
-    right multiply `img @ Bt`, on `device`."""
-    h, w = shape_hw
-
-    def put(m):
-        return torch.as_tensor(np.ascontiguousarray(m), device=device).to(
-            dtype)
-
-    a = tuple(put(m) for m in _axis_matrices_np(h, tuple(radii)))
-    bt = tuple(put(m.T) for m in _axis_matrices_np(w, tuple(radii)))
-    return a, bt
-
-
-def blur_stack(img, radii=(2, 6, 16), mats=None):
+def blur_stack(img, radii=(2, 6, 16)):
     """Progressively blurred copies of `[C, H, W]` (repeated boxes ≈
-    gaussian), level 0 the image. With `mats` (`blur_stack_matrices`)
-    each level is two matmuls over the SOURCE image (the per-level
-    matrices are cumulative); without, the sequential boxes. The same
-    operator either way."""
-    if mats is not None:
-        a, bt = mats
-        return [img] + [torch.matmul(torch.matmul(a_l, img), bt_l)
-                        for a_l, bt_l in zip(a, bt)]
+    gaussian), level 0 the image: each level two more boxes over the
+    previous one."""
     stack = [img]
     cur = img
     prev_r = 0
@@ -335,8 +245,7 @@ def _matched_level(strength, radii, kind):
                   torch.tensor(lv, device=strength.device).to(strength.dtype))
 
 
-def vignette_blur(view, radius, limit, radii=(1, 3, 8), grain=0.75,
-                  mats=None):
+def vignette_blur(view, radius, limit, radii=(1, 3, 8), grain=0.75):
     """Edge blur — ref `src/screen/blur.frag:24-32`.
 
     Per-pixel disc radius = `radius * (1 - vignette(uv, mid, limit,
@@ -355,11 +264,11 @@ def vignette_blur(view, radius, limit, radii=(1, 3, 8), grain=0.75,
             uv * torch.tensor([w, h], dtype=view.dtype,
                               device=view.device)) - 0.5
         level = level + jitter * grain * torch.clamp(level, max=1.0)
-    blurred = _stack_lerp(blur_stack(view, radii, mats=mats), level)
+    blurred = _stack_lerp(blur_stack(view, radii), level)
     return torch.cat([blurred[:3], view[3:4]])
 
 
-def bokeh(view, radius, amount, radii=(2, 6, 16), mats=None):
+def bokeh(view, radius, amount, radii=(2, 6, 16)):
     """Vignette bokeh — ref `src/screen/bokeh.frag:27-34` +
     `libs/bokeh/index.glsl`: blur of col·w over blur of w with the
     reference's highlight weights `pow(col², 9)·amt + 0.4`, the disc (20
@@ -377,7 +286,7 @@ def bokeh(view, radius, amount, radii=(2, 6, 16), mats=None):
     c4 = col2 * col2
     c4 = c4 * c4
     wgt = c4 * c4 * col2 * amt[None] + 0.4
-    num = blur_stack(torch.cat([col2 * wgt, wgt]), radii, mats=mats)
+    num = blur_stack(torch.cat([col2 * wgt, wgt]), radii)
     blurred = _stack_lerp(num, _matched_level(radius * power, radii,
                                               "bokeh"))
     out = blurred[:3] / torch.clamp(blurred[3:], min=1e-6)

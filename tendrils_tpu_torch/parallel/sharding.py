@@ -35,8 +35,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..engine import (EngineConfig, _f32, _frame, fast_resolve_ok,
-                      host_widths as state_widths)
+from ..engine import EngineConfig, _frame
 from ..ops.reorder_cuda import MAXKEY
 from . import comm
 
@@ -171,15 +170,15 @@ class ParallelTendrils:
         engine.sim = shard_sim(engine.sim, self.mesh)
 
     def frame(self):
+        """tick + the sharded frame (no `flow_off`, as the JAX facade)."""
         eng = self.engine
         eng.timer.tick()
         eng._check_force_params()
         if eng.timer.paused:
             return self
+        x = eng._frame_inputs()
         eng.sim = parallel_frame(
-            eng.sim, eng.params(), _f32(eng.timer.time, eng.device),
-            _f32(eng.timer.dt, eng.device), eng.config, eng._view_size,
-            self.mesh, targets_live=eng._targets_live,
-            fast_resolve=fast_resolve_ok(eng.config, eng.state),
-            host_widths=state_widths(eng.state))
+            eng.sim, x.params, x.time, x.dt, eng.config, eng._view_size,
+            self.mesh, targets_live=x.targets_live,
+            fast_resolve=x.fast_resolve, host_widths=x.host_widths)
         return self

@@ -32,8 +32,8 @@ import torch
 
 from .. import state as state_mod
 from ..const import INERT
-from ..engine import (EngineConfig, _decayed, _f32, carry_enabled,
-                      force_from_aux, host_widths as state_widths)
+from ..engine import (EngineConfig, _decayed, carry_enabled, force_from_aux,
+                      with_view0)
 from ..ops import coords, flow as flow_ops, logic_cuda, render, sample
 from ..ops import splat as splat_ops
 from ..ops.draw_cuda import _widen_excess, fused_draw_accumulate
@@ -179,7 +179,8 @@ def spatial_frame(sim, params, time, dt, cfg: EngineConfig, view_size, mesh,
     flow_parts, view_parts = _scatter_parts(group, flow_parts, view_parts)
     new_flow = splat_ops.composite_over(sim.flow, *flow_parts)
     view0 = splat_ops.composite_over(view0, *view_parts)
-    sim = dataclasses.replace(sim, flow=new_flow, view=view0[None])
+    sim = dataclasses.replace(sim, flow=new_flow,
+                              view=with_view0(sim.view, view0))
     if aux is not None:
         # The next step's force now: the step's all-gather moves here, and
         # the draw's sort has binned the stream for the keyed gather.
@@ -202,13 +203,14 @@ class SpatialTendrils:
         engine.sim = shard_sim_spatial(engine.sim, self.mesh)
 
     def frame(self):
+        """tick + the slab frame (no `flow_off`, as the JAX facade)."""
         eng = self.engine
         eng.timer.tick()
         eng._check_force_params()
         if eng.timer.paused:
             return self
+        x = eng._frame_inputs()
         eng.sim = spatial_frame(
-            eng.sim, eng.params(), _f32(eng.timer.time, eng.device),
-            _f32(eng.timer.dt, eng.device), eng.config, eng._view_size,
-            self.mesh, host_widths=state_widths(eng.state))
+            eng.sim, x.params, x.time, x.dt, eng.config, eng._view_size,
+            self.mesh, host_widths=x.host_widths)
         return self

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from tendrils_tpu import engine as jengine
+from tendrils_tpu import engine as jengine, state as jstate
 from tendrils_tpu.ops import spawn as jspawn
 from tendrils_tpu_torch import convert, engine as tengine
 from tendrils_tpu_torch.ops import cuda_lib, spawn as tspawn
@@ -88,6 +88,31 @@ def test_run_headless_from_spawn(jax_run):
     tsim = tengine.run_headless(t.sim, t.params(), t.config, t._view_size,
                                 t0, dt, FRAMES, targets_live=False)
     _compare(tsim, sim_arrays(jsim))
+
+
+def test_draw_then_step_after_a_decay_change(jax_run):
+    """A host change of flowDecay, then a direct `draw()`, then `step()`:
+    `draw()` gathers the next force (K7) but does not re-key it, so the
+    step drops it and gathers its own with the new decay (K5), as the JAX
+    facade's `draw()` and `step()` do."""
+    eng, _, snaps = jax_run
+    arrays, time = snaps[FRAMES - 1]
+    jeng = jengine.Tendrils(eng.config)
+    jeng.setup()
+    jeng.sim = jstate.SimState(**{k: None if v is None else jnp.asarray(v)
+                                  for k, v in arrays.items()})
+    jeng.timer.time = time
+    t = _port(eng, snaps[FRAMES - 1])
+    for e in (jeng, t):
+        e._check_force_params()  # keyed to the decay the force was made at
+        e.state["flowDecay"] = 2.0 * float(e.state["flowDecay"])
+        e.draw()
+    assert t.sim.force is not None
+    cuda_lib.reset_counts()
+    jeng.step()
+    t.step()
+    assert cuda_lib.plain_calls["bilinear_gather"] == 1
+    _compare(t.sim, sim_arrays(jeng.sim))
 
 
 @pytest.mark.parametrize("with_config", [False, True])

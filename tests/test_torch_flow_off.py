@@ -296,13 +296,12 @@ def test_flow_off_keeps_the_ungated_frame(start):
         for _ in range(FRAMES):
             teng.timer.tick()
             teng._check_force_params()
+            x = teng._frame_inputs()
             teng.sim = tengine._frame(
-                teng.sim, teng.params(), tengine._f32(teng.timer.time, "cpu"),
-                tengine._f32(teng.timer.dt, "cpu"), teng.config,
+                teng.sim, x.params, x.time, x.dt, teng.config,
                 teng._view_size, targets_live=False,
-                fast_resolve=tengine.fast_resolve_ok(teng.config, teng.state),
-                flow_off=flow_off,
-                host_widths=tengine.host_widths(teng.state))
+                fast_resolve=x.fast_resolve, flow_off=flow_off,
+                host_widths=x.host_widths)
         runs.append(teng.sim)
     a, b = runs
     pa = a.particles[:, torch.argsort(a.idx)]

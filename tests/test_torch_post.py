@@ -122,17 +122,14 @@ def test_box_blur_matches_jax(shape):
 @pytest.mark.parametrize("radii", [(2, 6, 16), (1, 3, 8)])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_blur_stack_both_forms_match_jax(shape, radii):
-    """Both forms of the stack against both of the JAX module's, within
-    its own cross-form bound (1e-4); the banded matrices equal its own."""
+    """The port's stack (the windowed boxes) against both of the JAX
+    module's forms, its cumsum boxes and its banded matrices, within its
+    own cross-form bound (1e-4)."""
     img = mkimg(3, *shape)
     ji, ti = _both(img)
-    tmats = tpost.blur_stack_matrices(shape, radii)
-    jmats = jpost.blur_stack_matrices(shape, radii)
-    for t, j in zip(tmats[0] + tmats[1], jmats[0] + jmats[1]):
-        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
-    jref = jpost.blur_stack(ji, radii)
-    for mats in (None, tmats):
-        got = tpost.blur_stack(ti, radii, mats=mats)
+    got = tpost.blur_stack(ti, radii)
+    for jm in (None, jpost.blur_stack_matrices(shape, radii)):
+        jref = jpost.blur_stack(ji, radii, mats=jm)
         assert len(got) == len(jref) == len(radii) + 1
         for g, r in zip(got, jref):
             np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
@@ -165,36 +162,32 @@ def test_interp_matches_jnp_interp():
                                                 (5.0, 0.4, 0.75)])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_vignette_blur_matches_jax(shape, radius, limit, grain):
-    """`vignette_blur`, both stack forms, against the JAX function (its
-    cumsum stack, eager) within the cross-form bounds; alpha passes
-    through."""
+    """`vignette_blur` against the JAX function in both of its stack
+    forms (eager) within the cross-form bounds; alpha passes through."""
     img = mkimg(5, *shape)
     ji, ti = _both(img)
-    with jax.disable_jit():
-        want = np.asarray(jpost.vignette_blur(ji, radius, limit,
-                                              grain=grain))
+    got = tpost.vignette_blur(ti, radius, limit, grain=grain)
+    assert torch.equal(got[3], ti[3])
     skip = _hash_wraps(shape) if grain else None
-    for mats in (None, tpost.blur_stack_matrices(shape, (1, 3, 8))):
-        got = tpost.vignette_blur(ti, radius, limit, grain=grain, mats=mats)
+    for jm in (None, jpost.blur_stack_matrices(shape, (1, 3, 8))):
+        with jax.disable_jit():
+            want = np.asarray(jpost.vignette_blur(ji, radius, limit,
+                                                  grain=grain, mats=jm))
         _within_cross_form(got.numpy(), want, skip)
-        assert torch.equal(got[3], ti[3])
 
 
 @pytest.mark.parametrize("radius,amount", [(1.0, 20.0), (3.0, 40.0)])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_bokeh_matches_jax(shape, radius, amount):
-    """`bokeh`, both stack forms, against the JAX function in both of its
-    forms, within the cross-form bounds; alpha passes through."""
+    """`bokeh` against the JAX function in both of its stack forms,
+    within the cross-form bounds; alpha passes through."""
     img = mkimg(9, *shape)
     ji, ti = _both(img)
-    jmats = jpost.blur_stack_matrices(shape, (2, 6, 16))
-    tmats = tpost.blur_stack_matrices(shape, (2, 6, 16))
-    for jm in (None, jmats):
+    got = tpost.bokeh(ti, radius, amount)
+    assert torch.equal(got[3], ti[3])
+    for jm in (None, jpost.blur_stack_matrices(shape, (2, 6, 16))):
         want = jpost.bokeh(ji, radius, amount, mats=jm)
-        for tm in (None, tmats):
-            got = tpost.bokeh(ti, radius, amount, mats=tm)
-            _within_cross_form(got.numpy(), want)
-            assert torch.equal(got[3], ti[3])
+        _within_cross_form(got.numpy(), want)
 
 
 # --- against the exact shaders (tests/test_post_oracle.py's bounds) --------
@@ -293,16 +286,20 @@ def test_step_draw_io_without_post_returns_none(start):
 @pytest.mark.parametrize("name", ["blur", "bokeh"])
 def test_facade_screen_is_the_windowed_boxes_form(start, name):
     """The facade's post stage runs the blur stack's windowed boxes: its
-    screen is `vignette_blur` / `bokeh` on the frame's view with no
-    matrices, bit for bit, and within the cross-form bounds of the
-    banded-matrix form on the same view."""
-    fn, args, radii = {"blur": (tpost.vignette_blur, (5.0, 0.4), (1, 3, 8)),
-                       "bokeh": (tpost.bokeh, (3.0, 40.0), (2, 6, 16))}[name]
+    screen is `vignette_blur` / `bokeh` on the frame's view, bit for bit,
+    and within the cross-form bounds of the JAX module's banded-matrix
+    form (eager) on the same view."""
+    fn, jfn, args, radii = {
+        "blur": (tpost.vignette_blur, jpost.vignette_blur, (5.0, 0.4),
+                 (1, 3, 8)),
+        "bokeh": (tpost.bokeh, jpost.bokeh, (3.0, 40.0), (2, 6, 16))}[name]
     teng = port_engine(start[0], sim_arrays(start[1]), start[2])
     screen = teng.step_draw_io(**{name: args})
     view = teng.sim.view[0]
     assert torch.equal(screen, fn(view, *args))
     h, w = start[0].view_res
-    mats = tpost.blur_stack_matrices((h, w), radii)
-    _within_cross_form(screen.numpy(), fn(view, *args, mats=mats).numpy(),
+    mats = jpost.blur_stack_matrices((h, w), radii)
+    with jax.disable_jit():
+        want = jfn(jnp.asarray(view.numpy()), *args, mats=mats)
+    _within_cross_form(screen.numpy(), np.asarray(want),
                        _hash_wraps((h, w)) if name == "blur" else None)
